@@ -8,41 +8,63 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero before the result line):
 
 0. card and versions;
-1. build the hand-written hash-partition kernels from ``src/`` with nvcc;
-2. hold each kernel against its plain torch version on the card, bit for
-   bit, at the main path's shapes (2^26 keys, the shape bucket of 60,000,000
-   rows) and at edge shapes, and time kernel, plain version and library
-   yardstick;
-3. the main path at TPC-H SF 1 through ``lachesis_torch.Session`` on the
-   card: q04-, q17- and q02-like workloads over a round-robin store (device
-   shuffles) and over a store partitioned on the join keys (elided), equal
-   to the port's host backend;
+1. build the three kernel families from ``src/`` with nvcc, one process
+   each, all started together;
+2. hold each hash-partition kernel against its plain torch version on the
+   card, bit for bit, at the main path's shapes (2^26 keys, the shape
+   bucket of 60,000,000 rows) and at edge shapes, and time kernel, plain
+   version and library yardstick;
+3. the analytics main path at TPC-H SF 1 through ``lachesis_torch.Session``
+   on the card: q04-, q17- and q02-like workloads over a round-robin store
+   (device shuffles) and over a store partitioned on the join keys
+   (elided), equal to the port's host backend;
 4. write lineitem at SF 10 (60,000,000 rows) hash-partitioned, repartition
-   it device to device, and hold both layouts to the host backend's bits.
+   it device to device, and hold both layouts to the host backend's bits;
+5. flash attention against its plain version at the reference's test
+   shapes and at internlm2-1.8b's prefill shape, timed;
+6. the chunked SSD scan against its plain version at the reference's test
+   shapes and at mamba2-370m's prefill shape, timed;
+7. LM serving at full width: ``serve_batch`` for internlm2-1.8b (seeded
+   random weights, batch 8, prompt 4096, 32 tokens) in bf16, timed, and in
+   float32; finite logits; decode logits equal to a prefill's at two
+   positions (within 5e-2 of the logits' max-abs in bf16, 1e-3 in
+   float32); a profiler trace of one prefill and two decode steps;
+8. the same for mamba2-370m.
 
-The kernels' launch counters are zeroed before phase 3 and read after
-phase 4; every kernel must have run on that path.  The second-to-last line
-is the kernel table as JSON, the last line the device record.
+Launch counters are zeroed before each main path and read just after it:
+phases 3-4 (hash-partition kernels), each of phase 7's serves (flash
+attention, 24 launches per prefill), each of phase 8's (SSD scan, 48).
+The second-to-last line is the kernel table as JSON, the last line the
+device record.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 SOURCE = "src/repro_torch/kernels/hash_partition/csrc/hash_partition.cu"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 REPLACES = {
     "hash_partition": "src/repro/kernels/hash_partition/hash_partition.py:83",
     "hash_partition_padded":
         "src/repro/kernels/hash_partition/hash_partition.py:142",
     "scatter_perm": "src/repro/kernels/hash_partition/hash_partition.py:208",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:94",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
 }
 MAIN_N = 1 << 26                    # shape bucket of SF-10 lineitem
 SF10_LINES = 60_000_000
@@ -360,6 +382,318 @@ def run_sf10(torch, np, lt, tcore, export_layout):
               f"({int(h['counts'].sum())} rows)", flush=True)
 
 
+# -- phase 5: flash attention against its plain version ------------------------
+
+# (B, H, KV, S, hd, causal, window, softcap, dtype): tests/test_kernels.py
+FLASH_CASES = [
+    (1, 4, 2, 256, 64, True, None, 0.0, "float32"),
+    (2, 4, 4, 128, 32, True, 64, 0.0, "float32"),
+    (1, 2, 1, 192, 64, False, None, 0.0, "float32"),   # MQA + kv tail
+    (1, 4, 2, 256, 64, True, None, 30.0, "float32"),   # softcap
+    (1, 2, 2, 320, 128, True, 128, 50.0, "float32"),
+    (1, 4, 2, 256, 64, True, None, 0.0, "bfloat16"),
+    (1, 8, 2, 384, 128, True, None, 0.0, "bfloat16"),  # GQA group 4
+]
+FA_MAIN = (8, 16, 8, 4096, 128)     # internlm2-1.8b prefill: B, H, KV, S, hd
+TOL = {"float32": (3e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}   # flash, SSD
+
+
+def check_close(torch, got, want, tol, what) -> float:
+    """The reference's allclose (atol = rtol = tol, elementwise); returns
+    the max abs error."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    diff = (got - want).abs()
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {float(diff.max())} "
+                             f"outside atol=rtol={tol}")
+    return float(diff.max())
+
+
+def run_flash(torch, fa, fa_ref, card):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def qkv(B, H, KV, S, hd, dtype):
+        # (B, S, heads, hd) buffers seen as (B, heads, S, hd), as the model
+        # hands its projections over
+        return [torch.randn((B, S, n, hd), generator=gen, device=dev)
+                .to(dtype).transpose(1, 2) for n in (H, KV, KV)]
+
+    for case in FLASH_CASES:
+        B, H, KV, S, hd, causal, window, cap, dname = case
+        dtype = getattr(torch, dname)
+        q, k, v = qkv(B, H, KV, S, hd, dtype)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        err = check_close(torch, fa.flash_attention(q, k, v, **kw),
+                          fa_ref.attention_ref(q, k, v, **kw),
+                          TOL[dname][0], f"flash_attention {case}")
+        print(f"phase 5: flash_attention {case}: max_abs_err={err:.3e}",
+              flush=True)
+
+    B, H, KV, S, hd = FA_MAIN
+    # float32 at the main shape holds every kv tile of the long rows to the
+    # reference's tight limit; bf16's limit is near the outputs' own size
+    q, k, v = qkv(B, H, KV, S, hd, torch.float32)
+    err32 = check_close(torch, fa.flash_attention(q, k, v, causal=True),
+                        fa_ref.attention_ref(q, k, v, causal=True),
+                        TOL["float32"][0],
+                        "flash_attention internlm2 prefill shape float32")
+    print(f"phase 5: flash_attention B={B} H={H} KV={KV} S={S} hd={hd} "
+          f"float32 causal: max_abs_err={err32:.3e}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = qkv(B, H, KV, S, hd, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa_ref.attention_ref(q, k, v, causal=True)
+    err = check_close(torch, got, want, TOL["bfloat16"][0],
+                      "flash_attention internlm2 prefill shape")
+    del got, want
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    # every (q, k) pair with k <= q: 2 FLOPs a multiply-add, QK^T and PV
+    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    row = {
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": REPLACES["flash_attention"], "launches": 0,
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                      flush, reps=10),
+        "plain_ms": time_ms(torch, lambda: fa_ref.attention_ref(
+            q, k, v, causal=True), flush, reps=3, warmup=1),
+        "bound_ms": max(flops / BF16_FLOP_PER_S,
+                        nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                     > nbytes / HBM_BYTES_PER_S else "bytes"),
+        "library_ms": time_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), flush, reps=10),
+    }
+    print(f"phase 5: flash_attention B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
+          f"causal: kernel_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} B) "
+          f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+          f"kernel_TFLOP/s={flops / row['ms'] / 1e9:.2f} "
+          f"max_abs_err={err:.3e} on {card}", flush=True)
+    del q, k, v, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 6: chunked SSD scan against its plain version -----------------------
+
+# (B, T, H, P, N, chunk, dtype): tests/test_kernels.py
+SSD_CASES = [
+    (2, 128, 4, 32, 64, 32, "float32"),
+    (1, 256, 8, 64, 128, 64, "float32"),
+    (1, 128, 2, 16, 32, 16, "bfloat16"),
+]
+SSD_MAIN = (8, 4096, 32, 64, 128, 256)   # mamba2-370m prefill: B, T, H, P, N, L
+
+
+def ssd_inputs(torch, gen, B, T, H, P, N, dtype):
+    """x, B and C as slices of one (B, T, H*P + 2N) buffer, as the model's
+    convolution output hands them over; dt (B, T, H) and A (H,) float32."""
+    dev = gen.device
+    conv = torch.randn((B, T, H * P + 2 * N), generator=gen, device=dev)
+    conv[..., :H * P] *= 0.5
+    conv[..., H * P:] *= 0.3
+    conv = conv.to(dtype)
+    x = conv[..., :H * P].reshape(B, T, H, P)
+    Bm = conv[..., H * P:H * P + N]
+    Cm = conv[..., H * P + N:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def run_ssd(torch, ss, ss_ref, card):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for case in SSD_CASES:
+        B, T, H, P, N, chunk, dname = case
+        args = ssd_inputs(torch, gen, B, T, H, P, N, getattr(torch, dname))
+        y, st = ss.ssd_scan(*args, chunk)
+        yr, str_ = ss_ref.ssd_ref(*args, chunk)
+        err = max(check_close(torch, y, yr, TOL[dname][1], f"ssd y {case}"),
+                  check_close(torch, st, str_, TOL[dname][1],
+                              f"ssd state {case}"))
+        print(f"phase 6: ssd_scan {case}: max_abs_err={err:.3e}", flush=True)
+
+    B, T, H, P, N, L = SSD_MAIN
+    args = ssd_inputs(torch, gen, B, T, H, P, N, torch.bfloat16)
+    y, st = ss.ssd_scan(*args, L)
+    yr, str_ = ss_ref.ssd_ref(*args, L)
+    err = max(check_close(torch, y, yr, TOL["bfloat16"][1],
+                          "ssd y mamba2 prefill shape"),
+              check_close(torch, st, str_, TOL["bfloat16"][1],
+                          "ssd state mamba2 prefill shape"))
+    del y, st, yr, str_
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    nc = T // L
+    tri = L * (L + 1) / 2
+    # causal work: C B^T's lower triangle once per (batch row, chunk), shared
+    # by the heads; per head: W.x over the triangle, C.state^T, the state
+    # update; 2 FLOPs a multiply-add
+    flops = 2.0 * (B * nc * tri * N
+                   + B * H * nc * (tri * P + L * N * P + P * N * L))
+    nbytes = (2 * B * T * H * P        # x in (bf16)
+              + 2 * 2 * B * T * N      # B and C in
+              + 4 * B * T * H + 4 * H  # dt and A (float32)
+              + 2 * B * T * H * P      # y out
+              + 2 * B * H * P * N)     # final state out
+    row = {
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": REPLACES["ssd_scan"], "launches": 0,
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: ss.ssd_scan(*args, L), flush, reps=10),
+        "plain_ms": time_ms(torch, lambda: ss_ref.ssd_ref(*args, L), flush,
+                            reps=3, warmup=1),
+        "bound_ms": max(flops / BF16_FLOP_PER_S,
+                        nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                     > nbytes / HBM_BYTES_PER_S else "bytes"),
+        "library_ms": None,     # no single PyTorch call computes SSD
+    }
+    print(f"phase 6: ssd_scan B={B} T={T} H={H} P={P} N={N} chunk={L} bf16: "
+          f"kernel_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} B) "
+          f"plain_ms={row['plain_ms']:.4f} library_ms=None "
+          f"kernel_TFLOP/s={flops / row['ms'] / 1e9:.2f} "
+          f"max_abs_err={err:.3e} on {card}", flush=True)
+    del args, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phases 7-8: LM serving at full width ---------------------------------------
+
+SERVE_BATCH, PROMPT_LEN, GEN = 8, 4096, 32
+# decode step i consumed generated token i at position PROMPT_LEN + i: its
+# logits are those of a prefill over the prompt and tokens 0..i.  In bf16
+# the caches (mamba2's SSD state above all) are rounded at every step, so
+# decode drifts from prefill as the steps go; float32 holds the path itself
+# to a tight limit.  (positions checked, limit as a share of the logits'
+# max-abs)
+DECODE_CHECKS = {"bfloat16": ((0, 1), 5e-2), "float32": ((0, GEN - 1), 1e-3)}
+
+
+def device_busy(torch, fn):
+    """(result, device-busy ms, wall ms, {kernel: ms}) of ``fn`` traced with
+    torch.profiler's CUDA activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    return out, sum(by_name.values()), wall, by_name
+
+
+def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
+    """``serve_batch`` at full width with seeded random weights, in bf16 (the
+    timed run) and in float32; returns each run's launch counts."""
+    import dataclasses
+    dev = torch.device("cuda")
+    device_busy(torch, lambda: torch.ones(1, device=dev) + 1)  # tracer start-up
+    launches = {}
+    for dtype, (positions, limit) in DECODE_CHECKS.items():
+        cfg = dataclasses.replace(get_config(arch), param_dtype=dtype)
+        t0 = time.perf_counter()
+        params = T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), dtype=np.int32)
+        torch.cuda.synchronize()
+        print(f"phase {phase}: {arch} {dtype}: {cfg.param_count()} "
+              f"parameters initialised in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        for reset, _ in counters:
+            reset()
+        out, stats = serve.serve_batch(cfg, params, prompts, GEN, device=dev)
+        launches[dtype] = {}
+        for _, table in counters:
+            launches[dtype].update(table)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"phase {phase}: {arch} {dtype} serve_batch "
+              f"batch={SERVE_BATCH} prompt={PROMPT_LEN} gen={GEN}: "
+              f"prefill_s={stats['prefill_s']:.4f} "
+              f"decode_s={stats['decode_s']:.4f} "
+              f"decode_tokens_per_s={stats['tokens_per_s']:.1f} "
+              f"max_memory_allocated={peak} launches={launches[dtype]}",
+              flush=True)
+        if out.shape != (SERVE_BATCH, GEN) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: bad generated ids {out.shape}")
+        # the decode path again over serve's tokens, prefill and steps 1-2
+        # traced, keeping the logits of the steps checked below
+        kept, traced, step_busy, step_wall = {}, Counter(), 0.0, 0.0
+        with torch.inference_mode():
+            toks = torch.from_numpy(prompts).to(dev)
+            (_, cache), busy, wall, _ = device_busy(
+                torch, lambda: T.prefill(cfg, params, toks,
+                                         cache_len=PROMPT_LEN + GEN))
+            print(f"phase {phase}: {arch} {dtype} prefill of {PROMPT_LEN} "
+                  f"tokens traced: device busy {busy:.1f} ms of {wall:.1f} "
+                  "ms wall", flush=True)
+            for i in range(GEN):
+                tok = torch.from_numpy(out[:, i:i + 1]).to(dev)
+
+                def step():
+                    return T.decode_step(cfg, params, cache, tok,
+                                         PROMPT_LEN + i)
+                if i in (1, 2):
+                    (lg, cache), busy, wall, by_name = device_busy(torch, step)
+                    step_busy, step_wall = step_busy + busy, step_wall + wall
+                    traced.update(by_name)
+                else:
+                    lg, cache = step()
+                if not bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()):
+                    raise AssertionError(f"{arch}: non-finite logits at "
+                                         f"decode step {i}")
+                if i in positions or i == GEN - 1:
+                    kept[i] = lg
+        # where a decode step's time goes: device busy against wall
+        print(f"phase {phase}: {arch} {dtype} 2 decode steps traced: device "
+              f"busy {step_busy:.2f} ms of {step_wall:.1f} ms wall; serve's "
+              f"decode {stats['decode_s'] / GEN * 1e3:.2f} ms a step; top "
+              + "; ".join(f"{k[:60]} {v:.2f} ms"
+                          for k, v in traced.most_common(3)), flush=True)
+        del cache
+        for i, got in sorted(kept.items()):
+            toks = torch.from_numpy(
+                np.concatenate([prompts, out[:, :i + 1]], 1)).to(dev)
+            with torch.inference_mode():
+                ref, _ = T.prefill(cfg, params, toks)
+            # the padded vocabulary rows hold the -1e30 sentinel: compare
+            # the real vocabulary
+            got = got[:, :cfg.vocab_size].float()
+            ref = ref[:, :cfg.vocab_size].float()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            gated = i in positions
+            print(f"phase {phase}: {arch} {dtype} decode step {i} vs prefill "
+                  f"of {toks.shape[1]} tokens: max_abs_err={err:.4e} "
+                  f"(logits max-abs {scale:.4e}; "
+                  + (f"limit {limit} of it)" if gated else
+                     "bf16 drift, not a check)"), flush=True)
+            if gated and not (math.isfinite(err) and err <= limit * scale):
+                raise AssertionError(f"{arch} {dtype}: decode step {i} "
+                                     f"logits differ from prefill by {err}")
+        del params, kept, stats
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -375,8 +709,15 @@ def main() -> int:
     from repro_torch.core.executor import TableVal
     from repro_torch.data import device_repartition as tdr
     from repro_torch.data.partition_store import export_layout
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.hash_partition import hash_partition as hp
     from repro_torch.kernels.hash_partition import ref
+    from repro_torch.kernels.ssd_scan import ref as ss_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
     card = card_line()
@@ -385,12 +726,18 @@ def main() -> int:
           f"cuda={torch.version.cuda}", flush=True)
     print(card, flush=True)
 
-    hp.build(force=True)
-    print(f"phase 1: built {hp.LIBRARY.relative_to(ROOT)} in "
-          f"{hp.BUILD_SECONDS:.2f} s", flush=True)
-    for line in hp.BUILD_LOG.splitlines():
-        if "Compiling entry" in line or "registers" in line:
-            print("phase 1: " + line.strip(), flush=True)
+    t1 = time.perf_counter()
+    libs = (hp.LIB, fa.LIB, ss.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:      # one nvcc per source
+        for lib, fut in [(lib, pool.submit(lib.build, True)) for lib in libs]:
+            fut.result()
+            print(f"phase 1: built {lib.library.relative_to(ROOT)} in "
+                  f"{lib.seconds:.2f} s", flush=True)
+            for line in lib.log.splitlines():
+                if "Compiling entry" in line or "registers" in line \
+                        or "spill" in line:
+                    print("phase 1: " + line.strip(), flush=True)
+    print(f"phase 1: done in {time.perf_counter() - t1:.1f} s", flush=True)
 
     kernels = check_kernels(torch, hp, ref, tdr, card)
 
@@ -404,6 +751,38 @@ def main() -> int:
     print(f"phase 4: done in {time.perf_counter() - t4:.1f} s", flush=True)
     launches = dict(hp.LAUNCHES)
     print(f"main path launches (phases 3-4): {launches}", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("phases 5-8: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}",
+          flush=True)
+    t5 = time.perf_counter()
+    kernels["flash_attention"] = run_flash(torch, fa, fa_ref, card)
+    print(f"phase 5: done in {time.perf_counter() - t5:.1f} s", flush=True)
+    t6 = time.perf_counter()
+    kernels["ssd_scan"] = run_ssd(torch, ss, ss_ref, card)
+    print(f"phase 6: done in {time.perf_counter() - t6:.1f} s", flush=True)
+
+    counters = [(hp.reset_launches, hp.LAUNCHES),
+                (fa.reset_launches, fa.LAUNCHES),
+                (ss.reset_launches, ss.LAUNCHES)]
+    for phase, arch, kernel, layers in ((7, "internlm2-1.8b",
+                                         "flash_attention", 24),
+                                        (8, "mamba2-370m", "ssd_scan", 48)):
+        tp = time.perf_counter()
+        served = run_serve(torch, np, arch, phase, counters, T, serve,
+                           get_config)
+        for dtype, counts in served.items():
+            if counts[kernel] != layers:
+                return fail(f"{arch} {dtype}: {kernel} launched "
+                            f"{counts[kernel]} times in one prefill, not "
+                            f"once per layer ({layers})")
+        launches[kernel] = served["bfloat16"][kernel]
+        print(f"phase {phase}: done in {time.perf_counter() - tp:.1f} s",
+              flush=True)
+
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         return fail(f"kernels never launched on the main path: {missing}")

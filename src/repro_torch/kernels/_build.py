@@ -1,0 +1,108 @@
+"""Build and load one hand-written CUDA kernel family.
+
+Every family keeps its kernels in one ``csrc/*.cu`` file with a plain C
+interface.  :class:`CudaLibrary` compiles it with ``nvcc`` for ``sm_90a``
+into ``build/torch_kernels/lib<name>.so`` at first use — never at import, so
+the CPU tests import every kernel module freely — and loads it with
+:mod:`ctypes`.  A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+
+#: build output inside the checkout (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return found
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the ``void*`` the launchers take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def raise_on(err: int, kernel: str) -> None:
+    """The C launchers return ``cudaGetLastError()`` after the launch."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+class CudaLibrary:
+    """One ``.cu`` source, its shared library and its ctypes signatures.
+
+    ``declare(lib)`` sets ``argtypes``/``restype`` of the C entry points.
+    :attr:`log` keeps what the last build printed (``-Xptxas -v``:
+    registers, shared memory, spills) and :attr:`seconds` how long it took.
+    """
+
+    def __init__(self, name: str, source: Path,
+                 declare: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = source
+        self.library = BUILD_DIR / f"lib{name}.so"
+        self._declare = declare
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.log = ""
+        self.seconds = 0.0
+
+    def build(self, force: bool = False) -> Path:
+        """Compile the source into :attr:`library` unless a build of the
+        same source and flags is already there.  The library is written to
+        a temporary name and renamed into place, so concurrent builds
+        never load a half-written file."""
+        src = self.source.read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()
+        stamp = self.library.with_suffix(".sha256")
+        if (not force and self.library.exists() and stamp.exists()
+                and stamp.read_text() == digest):
+            return self.library
+        compiler = nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([compiler, *NVCC_FLAGS, "-o", tmp,
+                               str(self.source)],
+                              capture_output=True, text=True)
+        self.seconds = time.perf_counter() - t0
+        self.log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {self.source.name} "
+                               f"({proc.returncode}):\n{self.log}")
+        os.replace(tmp, self.library)
+        stamp.write_text(digest)
+        return self.library
+
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed."""
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self._declare(lib)
+                self._lib = lib
+            return self._lib

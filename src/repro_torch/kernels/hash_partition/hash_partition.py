@@ -10,9 +10,8 @@ The port of the Pallas TPU kernels in the JAX package's
 
 The kernels live in ``csrc/hash_partition.cu`` (design notes there).  They
 are compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain
-C interface at first use — never at import, so the CPU tests import this
-module freely — and loaded with :mod:`ctypes`.  Each launcher takes CUDA
-tensors only: it checks device, dtype, shape and contiguity, allocates its
+C interface at first use (:data:`LIB`, see :mod:`.._build`).  Each launcher
+takes CUDA tensors only: it checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with torch, launches on the current stream, raises on a
 launch error, and counts its launches in :data:`LAUNCHES`.  The plain
 versions are in :mod:`.ref`; :mod:`.ops` picks between the two by device.
@@ -21,24 +20,12 @@ versions are in :mod:`.ref`; :mod:`.ops` picks between the two by device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "hash_partition.cu"
-#: build output inside the checkout (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
-LIBRARY = BUILD_DIR / "libhash_partition.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .._build import CudaLibrary, raise_on, stream
 
 #: rows one warp owns in the scatter's tile passes (a multiple of 32)
 SCATTER_TILE_ROWS = 2048
@@ -49,76 +36,30 @@ MAX_ROWS = 2 ** 31 - 1
 LAUNCHES: Dict[str, int] = {"hash_partition": 0, "hash_partition_padded": 0,
                             "scatter_perm": 0}
 
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-#: what the last build printed (``-Xptxas -v``: registers, shared memory)
-BUILD_LOG = ""
-BUILD_SECONDS = 0.0
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the hash-partition kernels")
-    return nvcc
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.hp_max_bins.argtypes = []
+    lib.hp_max_bins.restype = i32
+    lib.hp_hash_partition.argtypes = [p, p, p, i64, i64, i32, i32, p]
+    lib.hp_hash_partition.restype = i32
+    lib.hp_scatter_perm.argtypes = [p, p, p, p, i64, i32, i32, p]
+    lib.hp_scatter_perm.restype = i32
 
 
-def build(force: bool = False) -> Path:
-    """Compile ``csrc/hash_partition.cu`` into :data:`LIBRARY` unless a
-    build of the same source is already there.  The library is written to
-    a temporary name and renamed into place, so concurrent builders never
-    load a half-written file."""
-    global BUILD_LOG, BUILD_SECONDS
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    stamp = LIBRARY.with_suffix(".sha256")
-    if (not force and LIBRARY.exists() and stamp.exists()
-            and stamp.read_text() == digest):
-        return LIBRARY
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, LIBRARY)
-    stamp.write_text(digest)
-    return LIBRARY
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.hp_max_bins.argtypes = []
-            lib.hp_max_bins.restype = i32
-            lib.hp_hash_partition.argtypes = [p, p, p, i64, i64, i32, i32, p]
-            lib.hp_hash_partition.restype = i32
-            lib.hp_scatter_perm.argtypes = [p, p, p, p, i64, i32, i32, p]
-            lib.hp_scatter_perm.restype = i32
-            _LIB = lib
-        return _LIB
+LIB = CudaLibrary("hash_partition",
+                  Path(__file__).resolve().parent / "csrc"
+                  / "hash_partition.cu", _declare)
 
 
 def max_bins() -> int:
     """Most histogram bins (``m``, or ``m + 1`` padded) the kernels hold."""
-    return int(_lib().hp_max_bins())
+    return int(LIB.lib().hp_max_bins())
 
 
 def _check(t: torch.Tensor, name: str) -> None:
@@ -140,19 +81,10 @@ def _check_bins(lib: ctypes.CDLL, bins: int) -> None:
                          f"{limit} bins in shared memory")
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _hash(keys: torch.Tensor, n_valid: int, num_partitions: int,
           padded: bool, kernel: str) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(keys, "keys")
-    lib = _lib()
+    lib = LIB.lib()
     m = int(num_partitions)
     bins = m + 1 if padded else m
     _check_bins(lib, bins)
@@ -164,8 +96,8 @@ def _hash(keys: torch.Tensor, n_valid: int, num_partitions: int,
     with torch.cuda.device(keys.device):
         err = lib.hp_hash_partition(keys.data_ptr(), pids.data_ptr(),
                                     counts.data_ptr(), n, int(n_valid), m,
-                                    int(padded), _stream())
-    _raise_on(err, kernel)
+                                    int(padded), stream())
+    raise_on(err, kernel)
     LAUNCHES[kernel] += 1
     return pids, counts
 
@@ -193,7 +125,7 @@ def scatter_perm(pids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     _check(counts, "counts")
     if counts.device != pids.device:
         raise ValueError("pids and counts must be on the same device")
-    lib = _lib()
+    lib = LIB.lib()
     bins = counts.numel()
     _check_bins(lib, bins)
     n = pids.numel()
@@ -206,7 +138,7 @@ def scatter_perm(pids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(pids.device):
         err = lib.hp_scatter_perm(pids.data_ptr(), counts.data_ptr(),
                                   dest.data_ptr(), scratch.data_ptr(), n,
-                                  bins, SCATTER_TILE_ROWS, _stream())
-    _raise_on(err, "scatter_perm")
+                                  bins, SCATTER_TILE_ROWS, stream())
+    raise_on(err, "scatter_perm")
     LAUNCHES["scatter_perm"] += 1
     return dest

@@ -1,0 +1,129 @@
+"""Batched LM serving driver: prefill a batch of prompts, decode N tokens.
+
+The port of the JAX package's ``launch/serve.py``.  Prefill runs the
+full-sequence mixers through the hand-written kernels (flash attention for
+attention layers, the chunked SSD scan for SSD layers); decode runs the
+cached attention and the SSD recurrence in torch.  It runs on the card
+unless the caller asks for the CPU (``device="cpu"``); with no card and no
+such request it raises.
+
+    python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --batch 8 --prompt-len 4096 --gen 32
+    python -m repro_torch.launch.serve --arch internlm2-1.8b --reduced \
+        --device cpu
+
+Greedy decoding takes the first maximal logit, the reference's rule.
+Sampling draws from an explicit ``torch.Generator`` seeded with ``seed``;
+its bits differ from ``jax.random``'s, so sampled tokens are not the
+reference's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..configs.reduced import reduced as make_reduced
+from ..models import transformer as T
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; a CPU run must be asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available: pass "
+                               "device='cpu' to serve on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _to(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
+                greedy: bool = True, seed: int = 0, device=None
+                ) -> Tuple[np.ndarray, Dict[str, Any]]:
+    """prompts: (B, S) int32 → (B, gen_tokens) generated ids + stats.
+
+    ``params`` are moved to ``device`` (a no-op where they already are).
+    Times are host clocks around work that ends in a synchronize."""
+    device = resolve_device(device)
+    params = _to(params, device)
+    B, S = prompts.shape
+    cache_len = S + gen_tokens
+    tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def pick(logits: torch.Tensor) -> torch.Tensor:
+        if greedy:
+            return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, params, tokens, cache_len=cache_len)
+        tok = pick(logits)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+
+        out: List[torch.Tensor] = []
+        t0 = time.perf_counter()
+        for i in range(gen_tokens):
+            out.append(tok[:, 0])
+            logits, cache = T.decode_step(cfg, params, cache, tok, S + i)
+            tok = pick(logits)
+        generated = torch.stack(out, dim=1).cpu().numpy()   # synchronizes
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    return generated, {
+        "prefill_s": prefill_s, "decode_s": decode_s,
+        "tokens_per_s": B * gen_tokens / max(decode_s, 1e-9),
+        "device": str(device)}
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = make_reduced(cfg)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    out, stats = serve_batch(cfg, params, prompts, args.gen, seed=args.seed,
+                             device=device)
+    print(f"[serve] {cfg.name} on {stats['device']}: generated {out.shape} "
+          f"prefill={stats['prefill_s']:.2f}s decode={stats['decode_s']:.2f}s "
+          f"({stats['tokens_per_s']:.1f} tok/s)")
+
+
+if __name__ == "__main__":
+    main()

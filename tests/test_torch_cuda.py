@@ -162,3 +162,144 @@ def test_cuda_session_matches_host(cuda, partitioned):
     assert tk.LAUNCHES["hash_partition"] > 0
     if not partitioned:
         assert tk.LAUNCHES["hash_partition_padded"] > 0
+
+
+# -- LM serving path: flash attention and the chunked SSD scan ------------------
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.reduced import reduced  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as ss  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+FA_SHAPES = [
+    # (B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype)
+    (1, 4, 2, 256, 256, 64, True, None, 0.0, torch.float32),
+    (2, 4, 4, 100, 100, 32, True, 64, 0.0, torch.float32),
+    (1, 2, 1, 70, 192, 64, False, None, 0.0, torch.float32),
+    (1, 2, 2, 320, 320, 128, True, 128, 50.0, torch.float32),
+    (1, 2, 2, 130, 130, 256, True, None, 0.0, torch.bfloat16),
+    (2, 8, 2, 384, 384, 128, True, None, 0.0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FA_SHAPES)
+def test_cuda_flash_attention_matches_twin(cuda, case):
+    B, H, KV, Sq, Skv, hd, causal, window, cap, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, KV, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, KV, hd), generator=g, device=cuda).to(dtype)
+    # strided (B, H, S, hd) views of (B, S, H, hd) buffers, as the model
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_flash_attention_rejects(cuda):
+    q = torch.zeros((1, 4, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q[:, :2], q[:, :2])
+    q = torch.zeros((1, 4, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+
+
+SSD_SHAPES = [
+    # (B, T, H, P, N, chunk, dtype)
+    (2, 128, 4, 32, 64, 32, torch.float32),
+    (1, 256, 8, 64, 128, 64, torch.float32),
+    (1, 128, 2, 16, 32, 16, torch.bfloat16),
+    (2, 512, 4, 64, 128, 256, torch.bfloat16),
+]
+
+
+def _ssd_inputs(cuda, B, T, H, P, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + P + N)
+    x = (torch.randn((B, T, H, P), generator=g, device=cuda) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    Bm = (torch.randn((B, T, N), generator=g, device=cuda) * 0.3).to(dtype)
+    Cm = (torch.randn((B, T, N), generator=g, device=cuda) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("case", SSD_SHAPES)
+def test_cuda_ssd_scan_matches_twin(cuda, case):
+    B, T, H, P, N, chunk, dtype = case
+    args = _ssd_inputs(cuda, B, T, H, P, N, dtype)
+    y, st = ss.ssd_scan(*args, chunk)
+    yr, str_ = ssd_ref(*args, chunk)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st.float(), str_.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_ssd_scan_rejects(cuda):
+    args = _ssd_inputs(cuda, 1, 48, 2, 16, 32, torch.float32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ss.ssd_scan(*args, 32)
+    args = _ssd_inputs(cuda, 1, 32, 2, 80, 32, torch.float32)
+    with pytest.raises(ValueError, match="P=80"):
+        ss.ssd_scan(*args, 16)
+    args = _ssd_inputs(cuda, 1, 32, 2, 16, 144, torch.float32)
+    with pytest.raises(ValueError, match="N=144"):
+        ss.ssd_scan(*args, 16)
+
+
+def test_cuda_lm_launch_counters(cuda):
+    fa.reset_launches()
+    ss.reset_launches()
+    q = torch.zeros((1, 2, 16, 32), device=cuda)
+    fa.flash_attention(q, q, q)
+    ss.ssd_scan(*_ssd_inputs(cuda, 1, 32, 2, 16, 16, torch.float32), 16)
+    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert ss.LAUNCHES == {"ssd_scan": 1}
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+def test_cuda_reduced_prefill_matches_cpu(cuda, arch):
+    """Reduced model (head_dim 32: the kernel takes 32..256), float32:
+    prefill and two decode steps on the card equal the same weights on the
+    CPU, and the prefill went through the kernel of its mixer."""
+    import dataclasses
+    cfg = reduced(get_config(arch))
+    if cfg.ssd is None:
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dparams = _to_device(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    fa.reset_launches()
+    ss.reset_launches()
+    with torch.inference_mode():
+        want, wcache = TT.prefill(cfg, params, tokens, cache_len=42)
+        got, gcache = TT.prefill(cfg, dparams, tokens.to(cuda), cache_len=42)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for i in range(2):
+            tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+            want, wcache = TT.decode_step(cfg, params, wcache, tok, 40 + i)
+            got, gcache = TT.decode_step(cfg, dparams, gcache, tok.to(cuda),
+                                         40 + i)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    launched = (ss.LAUNCHES["ssd_scan"] if cfg.ssd
+                else fa.LAUNCHES["flash_attention"])
+    assert launched == cfg.num_layers
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)

@@ -1,0 +1,225 @@
+"""The torch port's LM serving path against the JAX package on the CPU.
+
+Reduced internlm2-1.8b (dense GQA attention) and mamba2-370m (SSD) in
+float32: weights from the JAX ``T.init_params`` carried across by
+``params_from_jax``; prefill and three decode steps compared on logits and
+caches within 1e-4, and greedy ``serve_batch`` tokens compared exactly.
+In the port the prefill mixers go through the kernels' plain versions
+(CPU tensors); in the reference they are the jnp paths the model layers
+call.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config  # noqa: E402
+from repro.configs.reduced import reduced  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import get_config as tget_config  # noqa: E402
+from repro_torch.configs.reduced import reduced as treduced  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+ARCHS = ["internlm2-1.8b", "mamba2-370m"]
+TOL = 1e-4
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    cfg = reduced(get_config(request.param))
+    params = JT.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = convert.params_from_jax(cfg, _np(params))
+    return cfg, params, tparams
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), atol=TOL,
+                               rtol=TOL, err_msg=what)
+
+
+def _check_caches(cfg, jcache, tcache, what):
+    jlayers = convert.unstack_layers(cfg, _np(jcache))
+    assert len(jlayers) == len(tcache) == cfg.num_layers
+    for i, (jl, tl) in enumerate(zip(jlayers, tcache)):
+        assert sorted(jl) == sorted(tl)
+        for key in jl:
+            assert tuple(tl[key].shape) == jl[key].shape, (what, i, key)
+            _close(tl[key].numpy(), jl[key], f"{what} layer {i} {key}")
+
+
+def test_port_config_registry_matches_reference():
+    from repro.configs import list_archs
+    from repro_torch.configs import list_archs as tlist_archs
+    assert tlist_archs() == list_archs()
+    for name in list_archs():
+        want, got = get_config(name), tget_config(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (dataclasses.asdict(treduced(got))
+                == dataclasses.asdict(reduced(want)))
+    assert tget_config("internlm2-1.8b").param_count() == 1_889_533_952
+    assert tget_config("mamba2-370m").param_count() == 367_788_032
+
+
+def test_prefill_and_decode_match_reference(model):
+    cfg, params, tparams = model
+    B, S, steps = 2, 24, 3
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    feed = rng.integers(0, cfg.vocab_size, (B, steps), dtype=np.int32)
+
+    jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt),
+                                 cache_len=S + steps)
+    with torch.inference_mode():
+        tlogits, tcache = TT.prefill(cfg, tparams, torch.from_numpy(prompt),
+                                     cache_len=S + steps)
+    assert tuple(tlogits.shape) == (B, cfg.padded_vocab)
+    _close(tlogits.numpy(), jlogits, "prefill logits")
+    _check_caches(cfg, jcache, tcache, "prefill cache")
+
+    for i in range(steps):
+        tok = feed[:, i:i + 1]
+        jlogits, jcache = JT.decode_step(cfg, params, jcache,
+                                         jnp.asarray(tok), jnp.int32(S + i))
+        with torch.inference_mode():
+            tlogits, tcache = TT.decode_step(cfg, tparams, tcache,
+                                             torch.from_numpy(tok), S + i)
+        _close(tlogits.numpy(), jlogits, f"decode step {i} logits")
+        _check_caches(cfg, jcache, tcache, f"decode step {i} cache")
+
+
+def test_serve_batch_greedy_tokens_equal_reference(model):
+    cfg, params, tparams = model
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 20),
+                                                dtype=np.int32)
+    jgen, _ = jserve.serve_batch(cfg, params, prompts, 6)
+    tgen, stats = tserve.serve_batch(cfg, tparams, prompts, 6, device="cpu")
+    assert stats["device"] == "cpu"
+    np.testing.assert_array_equal(tgen, jgen)
+
+
+def test_prefill_pads_ssd_to_a_chunk_multiple(model):
+    """A prompt that is not a chunk multiple (mamba2 reduced: chunk 16) and
+    one that is shorter than a chunk take the padded scan."""
+    cfg, params, tparams = model
+    for S in (5, 21):
+        prompt = np.random.default_rng(S).integers(
+            0, cfg.vocab_size, (1, S), dtype=np.int32)
+        jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt))
+        with torch.inference_mode():
+            tlogits, tcache = TT.prefill(cfg, tparams,
+                                         torch.from_numpy(prompt))
+        _close(tlogits.numpy(), jlogits, f"prefill S={S}")
+        _check_caches(cfg, jcache, tcache, f"prefill S={S} cache")
+
+
+def test_params_from_jax_bf16_round_trip_is_bit_exact():
+    cfg = dataclasses.replace(reduced(get_config("internlm2-1.8b")),
+                              param_dtype="bfloat16")
+    params = _np(JT.init_params(cfg, jax.random.PRNGKey(1)))
+    tparams = convert.params_from_jax(cfg, params)
+    jlayers = convert.unstack_layers(cfg, params)
+    pairs = [(params["embed"]["table"], tparams["embed"]["table"]),
+             (params["unembed"]["table"], tparams["unembed"]["table"])]
+    for jl, tl in zip(jlayers, tparams["layers"]):
+        pairs += [(jl["attn"][w]["w"], tl["attn"][w]["w"])
+                  for w in ("wq", "wk", "wv", "wo")]
+        pairs += [(jl["ffn"][w]["w"], tl["ffn"][w]["w"])
+                  for w in ("w_in", "w_gate", "w_out")]
+    for want, got in pairs:
+        assert want.dtype.name == "bfloat16"
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+
+
+@pytest.mark.parametrize("name,field,value", [
+    ("llama4-maverick-400b-a17b", None, None),         # MoE + iRoPE
+    ("deepseek-v2-236b", None, None),                  # MLA + MoE
+    ("recurrentgemma-9b", None, None),                 # RG-LRU
+    ("whisper-small", None, None),                     # encoder
+    ("internlm2-1.8b", "positional", "learned"),
+])
+def test_unported_configs_raise(name, field, value):
+    cfg = tget_config(name)
+    if field is not None:
+        cfg = dataclasses.replace(cfg, **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.init_cache(treduced(cfg), 1, 4, "cpu")
+
+
+def test_train_forward_matches_reference(model):
+    """The full-sequence forward (no cache) over every position."""
+    cfg, params, tparams = model
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 19),
+                                                dtype=np.int32)
+    jlogits, _, _ = JT.forward(cfg, params, jnp.asarray(tokens))
+    with torch.inference_mode():
+        tlogits, tcache = TT.forward(cfg, tparams, torch.from_numpy(tokens))
+    assert tcache is None
+    _close(tlogits.numpy(), jlogits, "train forward logits")
+
+
+# -- layers: the same inputs through the reference's and the port's ----------
+
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+
+def _pair(*shape, seed=0, scale=1.0):
+    a = (np.random.default_rng(seed).standard_normal(shape) * scale
+         ).astype(np.float32)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norms_match_reference(kind):
+    jx, tx = _pair(3, 5, 32, seed=1, scale=3.0)
+    js, ts = _pair(32, seed=2, scale=0.1)
+    jb, tb = _pair(32, seed=3)
+    jp = {"scale": js, "bias": jb} if kind == "layernorm" else {"scale": js}
+    tp = {"scale": ts, "bias": tb} if kind == "layernorm" else {"scale": ts}
+    _close(TL.norm_apply(kind, tp, tx).numpy(), JL.norm_apply(kind, jp, jx),
+           kind)
+
+
+@pytest.mark.parametrize("offset", [0, 37])
+def test_rope_matches_reference(offset):
+    jx, tx = _pair(2, 6, 4, 16, seed=4)
+    pos = np.arange(6)[None, :] + offset
+    _close(TL.apply_rope(tx, torch.from_numpy(pos), 1e6).numpy(),
+           JL.apply_rope(jx, jnp.asarray(pos), 1e6), "rope")
+
+
+@pytest.mark.parametrize("window,cap,kv_len", [(None, 0.0, 9), (4, 0.0, 12),
+                                              (None, 20.0, 7)])
+def test_decode_sdpa_matches_reference(window, cap, kv_len):
+    """Decode attention over a cache longer than its valid prefix: GQA
+    groups, q offset, window and softcap as the reference masks them."""
+    jq, tq = _pair(2, 1, 4, 16, seed=5)
+    jk, tk_ = _pair(2, 12, 2, 16, seed=6)
+    jv, tv = _pair(2, 12, 2, 16, seed=7)
+    want = JL.sdpa(jq, jk, jv, causal=True, window=window, attn_softcap=cap,
+                   q_offset=kv_len - 1, kv_len=jnp.int32(kv_len))
+    got = TL.sdpa(tq, tk_, tv, causal=True, window=window, attn_softcap=cap,
+                  q_offset=kv_len - 1, kv_len=kv_len)
+    _close(got.numpy(), want, "decode sdpa")
+
+
+def test_cross_entropy_matches_reference():
+    jl, tl = _pair(2, 5, 33, seed=8, scale=4.0)
+    labels = np.random.default_rng(9).integers(0, 33, (2, 5))
+    _close(TL.cross_entropy(tl, torch.from_numpy(labels)).numpy(),
+           JL.cross_entropy(jl, jnp.asarray(labels)), "cross entropy")

@@ -382,6 +382,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert res.stats.shuffles_performed == 2
         sess.repartition("submissions",
                          enumerate_candidates(wl.graph, "authors")[0])
+        # the LM serving slice: configs, kernels, models, serve
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.reduced import reduced
+        from repro_torch.kernels.flash_attention import flash_attention, ops
+        from repro_torch.kernels.ssd_scan import ssd_scan, ops as ssd_ops
+        from repro_torch.launch import serve
+        from repro_torch.models import convert, layers, ssd, transformer
+        for arch in ("internlm2-1.8b", "mamba2-370m"):
+            cfg = reduced(get_config(arch))
+            params = transformer.init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu")
+            gen, _ = serve.serve_batch(cfg, params, np.zeros((1, 8), np.int32),
+                                       2, device="cpu")
+            assert gen.shape == (1, 2)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "lachesis"))
