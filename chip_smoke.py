@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the result line):
 4. write lineitem at SF 10 (60,000,000 rows) hash-partitioned, repartition
    it device to device, and hold both layouts to the host backend's bits;
 5. flash attention against its plain version at the reference's test
-   shapes and at internlm2-1.8b's prefill shape, timed;
+   shapes, the bf16 kernel's edge cases, and internlm2-1.8b's prefill shape
+   (float32 within 3e-5; bf16 within 2e-2 elementwise and 1e-2 relative
+   RMS, with a control that drops one 64-key tile and must fail that
+   check), timed;
 6. the chunked SSD scan against its plain version at the reference's test
    shapes and at mamba2-370m's prefill shape, timed;
 7. LM serving at full width: ``serve_batch`` for internlm2-1.8b (seeded
@@ -384,18 +387,33 @@ def run_sf10(torch, np, lt, tcore, export_layout):
 
 # -- phase 5: flash attention against its plain version ------------------------
 
-# (B, H, KV, S, hd, causal, window, softcap, dtype): tests/test_kernels.py
+# (B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype): the reference's
+# test shapes (tests/test_kernels.py), then the bf16 tensor-core kernel's
+# window, softcap, kv tail, MQA, Sq != Skv, hd 32 and hd 256 cases
 FLASH_CASES = [
-    (1, 4, 2, 256, 64, True, None, 0.0, "float32"),
-    (2, 4, 4, 128, 32, True, 64, 0.0, "float32"),
-    (1, 2, 1, 192, 64, False, None, 0.0, "float32"),   # MQA + kv tail
-    (1, 4, 2, 256, 64, True, None, 30.0, "float32"),   # softcap
-    (1, 2, 2, 320, 128, True, 128, 50.0, "float32"),
-    (1, 4, 2, 256, 64, True, None, 0.0, "bfloat16"),
-    (1, 8, 2, 384, 128, True, None, 0.0, "bfloat16"),  # GQA group 4
+    (1, 4, 2, 256, 256, 64, True, None, 0.0, "float32"),
+    (2, 4, 4, 128, 128, 32, True, 64, 0.0, "float32"),
+    (1, 2, 1, 192, 192, 64, False, None, 0.0, "float32"),   # MQA + kv tail
+    (1, 4, 2, 256, 256, 64, True, None, 30.0, "float32"),   # softcap
+    (1, 2, 2, 320, 320, 128, True, 128, 50.0, "float32"),
+    (1, 4, 2, 256, 256, 64, True, None, 0.0, "bfloat16"),
+    (1, 8, 2, 384, 384, 128, True, None, 0.0, "bfloat16"),  # GQA group 4
+    (2, 4, 4, 128, 128, 32, True, 64, 0.0, "bfloat16"),     # window, hd 32
+    (1, 4, 2, 256, 256, 64, True, None, 30.0, "bfloat16"),  # softcap
+    (1, 2, 2, 320, 320, 128, True, 128, 50.0, "bfloat16"),  # + kv tail
+    (1, 2, 2, 320, 320, 128, True, 80, 0.0, "bfloat16"),   # 32-row warps
+    (1, 4, 2, 70, 200, 128, False, None, 0.0, "bfloat16"),  # + tails
+    (1, 2, 1, 192, 192, 64, False, None, 0.0, "bfloat16"),  # MQA + kv tail
+    (1, 2, 1, 70, 192, 64, False, None, 0.0, "bfloat16"),   # Sq != Skv
+    (1, 2, 2, 192, 192, 256, True, None, 0.0, "bfloat16"),  # hd 256
+    (1, 2, 2, 130, 130, 256, True, 100, 0.0, "bfloat16"),   # + window, tails
 ]
 FA_MAIN = (8, 16, 8, 4096, 128)     # internlm2-1.8b prefill: B, H, KV, S, hd
 TOL = {"float32": (3e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}   # flash, SSD
+# relative RMS error ||got - want|| / ||want|| of bf16 flash attention: bf16
+# output rounding alone gives about 1e-3, a skipped 64-key tile about 1e-1
+RMS_LIMIT = 1e-2
+DROPPED_TILE = (2048, 2112)         # the control's missing keys at S=4096
 
 
 def check_close(torch, got, want, tol, what) -> float:
@@ -412,6 +430,32 @@ def check_close(torch, got, want, tol, what) -> float:
     return float(diff.max())
 
 
+def rel_rms(torch, got, want) -> float:
+    torch.cuda.synchronize()
+    return float(torch.linalg.vector_norm((got.double() - want.double()))
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def attention_dropping(torch, q, k, v, keys):
+    """Causal plain attention with the keys in ``range(*keys)`` left out,
+    one batch row at a time: the control that the relative-RMS check must
+    reject."""
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & ~(
+        (pos[None, :] >= keys[0]) & (pos[None, :] < keys[1]))
+    out = []
+    for b in range(B):
+        s = torch.einsum("hqd,hkd->hqk", q[b].float() / math.sqrt(hd),
+                         k[b].float().repeat_interleave(G, 0))
+        p = torch.softmax(s.masked_fill_(~mask, -1e30), dim=-1)
+        out.append(torch.einsum("hqk,hkd->hqd", p, v[b].float()
+                                .repeat_interleave(G, 0)).to(q.dtype))
+        del s, p
+    return torch.stack(out)
+
+
 def run_flash(torch, fa, fa_ref, card):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -423,15 +467,21 @@ def run_flash(torch, fa, fa_ref, card):
                 .to(dtype).transpose(1, 2) for n in (H, KV, KV)]
 
     for case in FLASH_CASES:
-        B, H, KV, S, hd, causal, window, cap, dname = case
+        B, H, KV, Sq, Skv, hd, causal, window, cap, dname = case
         dtype = getattr(torch, dname)
-        q, k, v = qkv(B, H, KV, S, hd, dtype)
+        q = qkv(B, H, KV, Sq, hd, dtype)[0]
+        _, k, v = qkv(B, H, KV, Skv, hd, dtype)
         kw = dict(causal=causal, window=window, softcap=cap)
-        err = check_close(torch, fa.flash_attention(q, k, v, **kw),
-                          fa_ref.attention_ref(q, k, v, **kw),
-                          TOL[dname][0], f"flash_attention {case}")
-        print(f"phase 5: flash_attention {case}: max_abs_err={err:.3e}",
-              flush=True)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa_ref.attention_ref(q, k, v, **kw)
+        err = check_close(torch, got, want, TOL[dname][0],
+                          f"flash_attention {case}")
+        rms = rel_rms(torch, got, want)
+        if dname == "bfloat16" and not rms <= RMS_LIMIT:
+            raise AssertionError(f"flash_attention {case}: relative RMS "
+                                 f"error {rms} above {RMS_LIMIT}")
+        print(f"phase 5: flash_attention {case}: max_abs_err={err:.3e} "
+              f"rel_rms={rms:.3e}", flush=True)
 
     B, H, KV, S, hd = FA_MAIN
     # float32 at the main shape holds every kv tile of the long rows to the
@@ -450,7 +500,22 @@ def run_flash(torch, fa, fa_ref, card):
     want = fa_ref.attention_ref(q, k, v, causal=True)
     err = check_close(torch, got, want, TOL["bfloat16"][0],
                       "flash_attention internlm2 prefill shape")
-    del got, want
+    rms = rel_rms(torch, got, want)
+    del got
+    torch.cuda.empty_cache()
+    control = rel_rms(torch, attention_dropping(torch, q, k, v, DROPPED_TILE),
+                      want)
+    print(f"phase 5: flash_attention B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
+          f"causal: rel_rms={rms:.3e} (limit {RMS_LIMIT}); control with keys "
+          f"{DROPPED_TILE[0]}..{DROPPED_TILE[1] - 1} dropped: "
+          f"rel_rms={control:.3e}", flush=True)
+    if not rms <= RMS_LIMIT:
+        raise AssertionError("flash_attention internlm2 prefill shape: "
+                             f"relative RMS error {rms} above {RMS_LIMIT}")
+    if control <= RMS_LIMIT:
+        raise AssertionError("the relative-RMS check passes attention with "
+                             "a 64-key tile dropped: it cannot catch one")
+    del want
     torch.cuda.empty_cache()
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     # every (q, k) pair with k <= q: 2 FLOPs a multiply-add, QK^T and PV
@@ -639,12 +704,15 @@ def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
         kept, traced, step_busy, step_wall = {}, Counter(), 0.0, 0.0
         with torch.inference_mode():
             toks = torch.from_numpy(prompts).to(dev)
-            (_, cache), busy, wall, _ = device_busy(
+            (_, cache), busy, wall, by_name = device_busy(
                 torch, lambda: T.prefill(cfg, params, toks,
                                          cache_len=PROMPT_LEN + GEN))
             print(f"phase {phase}: {arch} {dtype} prefill of {PROMPT_LEN} "
                   f"tokens traced: device busy {busy:.1f} ms of {wall:.1f} "
-                  "ms wall", flush=True)
+                  "ms wall; top " + "; ".join(
+                      f"{k[:60]} {v:.2f} ms"
+                      for k, v in Counter(by_name).most_common(3)),
+                  flush=True)
             for i in range(GEN):
                 tok = torch.from_numpy(out[:, i:i + 1]).to(dev)
 

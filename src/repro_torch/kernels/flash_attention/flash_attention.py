@@ -3,8 +3,10 @@
 The port of the Pallas TPU kernel in the JAX package's
 ``kernels/flash_attention/flash_attention.py``: online-softmax attention
 with GQA, causal tile skipping, a sliding window, a tanh softcap and the kv
-tail masked.  The kernel lives in ``csrc/flash_attention.cu`` (design notes
-there) and is built at first use (:data:`LIB`, see :mod:`.._build`).
+tail masked.  The kernels live in ``csrc/flash_attention.cu`` (design notes
+there) and are built at first use (:data:`LIB`, see :mod:`.._build`): the
+dtype picks one — bfloat16 runs on the tensor cores (``mma.sync``, P
+rounded to bfloat16 before P·V), float32 on the CUDA cores in full float32.
 
 :func:`flash_attention` takes CUDA tensors only.  It reads q, k and v
 through their strides (the last dimension contiguous), so the model's
@@ -56,7 +58,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` unless the kernel takes these tensors: 4-D,
     one dtype (float32 or bfloat16), k and v of one shape, the batch and
     head dims matching, KV dividing H, hd in :data:`HEAD_DIMS` and
-    contiguous, all on one CUDA device."""
+    contiguous, all on one CUDA device; bfloat16 tensors 16-B aligned with
+    (b, h, s) strides in multiples of 8 elements."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-D: (B, H, S, hd)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -76,6 +79,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
+        # the tensor-core kernel loads rows with 16-B cp.async copies
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(
+                f"bfloat16 {name} must start 16-B aligned with (b, h, s) "
+                "strides in multiples of 8 elements, got data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, strides {tuple(t.stride())}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if k.device != q.device or v.device != q.device:

@@ -182,6 +182,17 @@ FA_SHAPES = [
     (1, 2, 2, 320, 320, 128, True, 128, 50.0, torch.float32),
     (1, 2, 2, 130, 130, 256, True, None, 0.0, torch.bfloat16),
     (2, 8, 2, 384, 384, 128, True, None, 0.0, torch.bfloat16),
+    # the bf16 tensor-core kernel: window, softcap, kv tail, MQA, Sq != Skv,
+    # hd 32 and 256
+    (2, 4, 4, 128, 128, 32, True, 64, 0.0, torch.bfloat16),
+    (1, 4, 2, 256, 256, 64, True, None, 30.0, torch.bfloat16),
+    (1, 2, 2, 320, 320, 128, True, 128, 50.0, torch.bfloat16),
+    (1, 2, 2, 320, 320, 128, True, 80, 0.0, torch.bfloat16),
+    (1, 4, 2, 70, 200, 128, False, None, 0.0, torch.bfloat16),
+    (1, 2, 1, 192, 192, 64, False, None, 0.0, torch.bfloat16),
+    (1, 2, 1, 70, 192, 64, False, None, 0.0, torch.bfloat16),
+    (2, 4, 4, 100, 100, 32, True, 64, 0.0, torch.bfloat16),
+    (1, 2, 2, 192, 192, 256, True, 100, 20.0, torch.bfloat16),
 ]
 
 
@@ -200,6 +211,10 @@ def test_cuda_flash_attention_matches_twin(cuda, case):
     torch.cuda.synchronize()
     tol = 3e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        # relative RMS: bf16 rounding gives ~2e-3, a skipped tile ~1e-1
+        err = torch.linalg.vector_norm(got.double() - want.double())
+        assert float(err / torch.linalg.vector_norm(want.double())) <= 1e-2
 
 
 def test_cuda_flash_attention_rejects(cuda):
@@ -211,6 +226,21 @@ def test_cuda_flash_attention_rejects(cuda):
         fa.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_cuda_flash_attention_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel's cp.async loads need 16-B aligned rows: a view one
+    element off, or with an odd row stride, raises and is not copied."""
+    q = torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16, device=cuda)
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-B aligned"):
+        fa.flash_attention(off, q[:, :2], q[:, :2])
+    odd = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16,
+                      device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-B aligned"):
+        fa.flash_attention(q, odd, odd)
+    fa.flash_attention(q, q[:, :2], q[:, :2])      # aligned views pass
 
 
 SSD_SHAPES = [

@@ -5,7 +5,18 @@ Inputs are made with numpy from a seed and handed to both; bfloat16 inputs
 are the same float32 values rounded by each framework (round to nearest
 even, so the bits agree).  Tolerances are the reference's own: 3e-5 in
 float32, 2e-2 in bfloat16.
+
+The bfloat16 CUDA kernel cannot run here, so its arithmetic is rehearsed
+tile by tile in torch (:func:`emulate_bf16_kernel`) and held to the Pallas
+kernel: its tile sizes and kv range, masks only on the tiles that straddle
+the diagonal, the window's edge or the kv tail, ``exp2`` with log2(e)
+folded into the scale, and P rounded to bfloat16 before P·V.  Beside the
+elementwise limit, the relative RMS error ``||got - want|| / ||want||``
+must be at most 1e-2: bfloat16 output rounding alone gives about 1e-3, a
+skipped 64-key tile about 1e-1 (the negative control below).
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,3 +96,157 @@ def test_kernel_wrapper_rejects_dtypes():
         tk.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="dtype"):
         tk.flash_attention(q.float(), q.bfloat16(), q.bfloat16())
+
+
+def test_kernel_wrapper_rejects_misaligned_bf16():
+    """The tensor-core kernel's 16-B cp.async loads need an aligned start
+    and (b, h, s) strides in multiples of 8 elements: a view that breaks
+    either raises instead of being copied quietly."""
+    base = torch.zeros((1, 2, 9, 64), dtype=torch.bfloat16)
+    ok = base[:, :, :8]
+    with pytest.raises(ValueError, match="16-B aligned"):
+        tk.flash_attention(base.flatten()[1:1 + ok.numel()].view(ok.shape),
+                           ok, ok)
+    wide = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-B aligned"):
+        tk.flash_attention(ok, wide, wide)
+    # aligned bfloat16 views pass on to the device check
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.flash_attention(ok, ok, ok)
+
+
+# -- the bfloat16 tensor-core kernel, tile by tile ------------------------------
+
+LOG2E = 1.4426950408889634
+RMS_LIMIT = 1e-2
+
+
+def kernel_tiles(hd, softcap):
+    """(q rows a CTA, q rows a warp, kv rows a tile) of the bf16 kernel: 4
+    warps of two m16 row tiles at hd=128 without softcap, else of one; kv
+    tiles of 32 rows at hd=256, else 64."""
+    wr = 32 if hd == 128 and softcap <= 0 else 16
+    return 4 * wr, wr, 32 if hd == 256 else 64
+
+
+def emulate_bf16_kernel(q, k, v, *, causal, window, softcap, scale=None,
+                        drop_tile=None):
+    """The bfloat16 kernel's arithmetic in torch: q (B, H, Sq, hd), k/v
+    (B, KV, Skv, hd) bfloat16 → (B, H, Sq, hd) bfloat16.  ``drop_tile``
+    skips one kv tile (the negative control)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    BQ, WR, BK = kernel_tiles(hd, softcap)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
+    nq, nk = -(-Sq // BQ), -(-Skv // BK)
+    # rows past Sq and kv rows past Skv are zero-filled, as cp.async does
+    qp = torch.zeros((B, H, nq * BQ, hd))
+    qp[:, :, :Sq] = q.float()
+    kp = torch.zeros((B, KV, nk * BK, hd))
+    vp = torch.zeros((B, KV, nk * BK, hd))
+    kp[:, :, :Skv], vp[:, :, :Skv] = k.float(), v.float()
+    kp = kp.repeat_interleave(H // KV, dim=1)
+    vp = vp.repeat_interleave(H // KV, dim=1)
+    out = torch.empty((B, H, nq * BQ, hd))
+    for qt in range(nq):
+        q0 = qt * BQ
+        q_last = min(q0 + BQ, Sq) - 1
+        kt_end = min(nk, q_last // BK + 1) if causal else nk
+        kt_begin = ((q0 - window + 1) // BK
+                    if window is not None and q0 - window + 1 > 0 else 0)
+        qi = torch.arange(q0, q0 + BQ)[:, None]
+        qtile = qp[:, :, q0:q0 + BQ]
+        m = torch.full((B, H, BQ), -1e30)
+        l = torch.zeros((B, H, BQ))
+        acc = torch.zeros((B, H, BQ, hd))
+        for kt in range(kt_begin, kt_end):
+            if kt == drop_tile:
+                continue
+            k0 = kt * BK
+            s = qtile @ kp[:, :, k0:k0 + BK].transpose(-1, -2)
+            if softcap > 0:
+                s = torch.tanh(s * scale / softcap) * softcap * LOG2E
+            else:
+                s = s * sl2
+            kj = torch.arange(k0, k0 + BK)[None, :]
+            keep = kj < Skv
+            if causal:
+                keep = keep & (kj <= qi)
+            if window is not None:
+                keep = keep & (qi - kj < window)
+            # each warp masks only where its rows straddle an edge
+            for w in range(BQ // WR):
+                qw = q0 + WR * w
+                edge = (k0 + BK > Skv or (causal and k0 + BK - 1 > qw)
+                        or (window is not None
+                            and qw + WR - 1 - k0 >= window))
+                if not edge:
+                    keep[WR * w:WR * (w + 1)] = True
+            s = s.masked_fill(~keep, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + p.bfloat16().float() @ vp[:, :, k0:k0 + BK])
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc / l.clamp_min(1e-30)[..., None]
+    return out[:, :, :Sq].bfloat16()
+
+
+def rel_rms(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+# (B, H, KV, Sq, Skv, hd, causal, window, softcap): the bfloat16 cases of
+# FLASH_CASES, then window, softcap, kv tail, MQA, Sq != Skv, hd 32 and 256
+BF16_CASES = [c[:4] + c[3:8] for c in FLASH_CASES if c[-1] == "bfloat16"] + [
+    (2, 4, 4, 128, 128, 32, True, 64, 0.0),     # window, hd 32
+    (1, 4, 2, 256, 256, 64, True, None, 30.0),  # softcap
+    (1, 2, 2, 320, 320, 128, True, 128, 50.0),  # window + softcap + kv tail
+    (1, 2, 2, 320, 320, 128, True, 80, 0.0),   # 32-row warps, window
+    (1, 4, 2, 70, 200, 128, False, None, 0.0),  # 32-row warps, tails
+    (1, 2, 1, 192, 192, 64, False, None, 0.0),  # MQA + kv tail
+    (1, 2, 1, 70, 192, 64, False, None, 0.0),   # Sq != Skv
+    (1, 2, 2, 192, 192, 256, True, None, 0.0),  # hd 256: 32-row kv tiles
+    (1, 2, 2, 130, 130, 256, True, 100, 0.0),   # hd 256, window, q/kv tails
+]
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_bf16_kernel_emulation_matches_pallas_kernel(case):
+    B, H, KV, Sq, Skv, hd, causal, window, cap = case
+    rng = np.random.default_rng(Sq + Skv + hd)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((B, H, Sq, hd), (B, KV, Skv, hd),
+                            (B, KV, Skv, hd))]
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    tx = [torch.from_numpy(a).bfloat16() for a in arrays]
+    want = flash_attention(*jx, causal=causal, window=window, softcap=cap,
+                           block_q=128, block_k=128, interpret=True)
+    want = torch.from_numpy(np.asarray(want, np.float32))
+    got = emulate_bf16_kernel(*tx, causal=causal, window=window,
+                              softcap=cap)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, H, Sq, hd)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2e-2,
+                               rtol=2e-2)
+    assert rel_rms(got, want) <= RMS_LIMIT
+
+
+def test_rel_rms_check_catches_a_dropped_tile():
+    """Negative control: at S=1024 the emulated kernel passes the relative
+    RMS check against attention_ref, and fails it with one middle kv tile
+    of 64 keys dropped."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .bfloat16() for shape in ((1, 2, 1024, 64), (1, 1, 1024, 64),
+                                         (1, 1, 1024, 64)))
+    want = attention_ref(q, k, v, causal=True)
+    whole = rel_rms(emulate_bf16_kernel(q, k, v, causal=True, window=None,
+                                        softcap=0.0), want)
+    dropped = rel_rms(emulate_bf16_kernel(q, k, v, causal=True, window=None,
+                                          softcap=0.0, drop_tile=8), want)
+    assert whole <= RMS_LIMIT < dropped
