@@ -26,7 +26,11 @@ Phases (any failure exits non-zero before the result line):
    RMS, with a control that drops one 64-key tile and must fail that
    check), timed;
 6. the chunked SSD scan against its plain version at the reference's test
-   shapes and at mamba2-370m's prefill shape, timed;
+   shapes, one small shape under slow decay (Mamba-2's published init) and
+   mamba2-370m's prefill shape under fast and slow decay (bf16, the
+   tensor-core kernel, within 5e-2 elementwise and 1e-2 relative RMS, with
+   a control that drops one tile pair under slow decay and must fail that
+   check; float32, the CUDA-core kernel, within 1e-4), timed;
 7. LM serving at full width: ``serve_batch`` for internlm2-1.8b (seeded
    random weights, batch 8, prompt 4096, 32 tokens) in bf16, timed, and in
    float32; finite logits; decode logits equal to a prefill's at two
@@ -410,8 +414,9 @@ FLASH_CASES = [
 ]
 FA_MAIN = (8, 16, 8, 4096, 128)     # internlm2-1.8b prefill: B, H, KV, S, hd
 TOL = {"float32": (3e-5, 1e-4), "bfloat16": (2e-2, 5e-2)}   # flash, SSD
-# relative RMS error ||got - want|| / ||want|| of bf16 flash attention: bf16
-# output rounding alone gives about 1e-3, a skipped 64-key tile about 1e-1
+# relative RMS error ||got - want|| / ||want|| of bf16 flash attention and
+# SSD: bf16 rounding alone gives about 1e-3 (SSD 3e-3), a skipped 64-key
+# tile about 1e-1
 RMS_LIMIT = 1e-2
 DROPPED_TILE = (2048, 2112)         # the control's missing keys at S=4096
 
@@ -556,12 +561,22 @@ SSD_CASES = [
     (1, 256, 8, 64, 128, 64, "float32"),
     (1, 128, 2, 16, 32, 16, "bfloat16"),
 ]
+# slow decay (Mamba-2's published init): every key tile of a chunk reaches
+# its later rows, so a wrong or skipped tile pair shows; one small shape
+# (32-row tiles) here, the main shape below
+SSD_SLOW_CASES = [(1, 256, 2, 32, 64, 32, "bfloat16")]
 SSD_MAIN = (8, 4096, 32, 64, 128, 256)   # mamba2-370m prefill: B, T, H, P, N, L
+# the control's missing tile pair of 64 rows (output tile, key tile): rows
+# 192-255 against keys 128-191 of every chunk
+SSD_DROPPED = (3, 2)
+SSD_ROUTE = "bf16: tensor cores (mma.sync); float32: CUDA cores"
 
 
-def ssd_inputs(torch, gen, B, T, H, P, N, dtype):
+def ssd_inputs(torch, gen, B, T, H, P, N, dtype, decay="fast"):
     """x, B and C as slices of one (B, T, H*P + 2N) buffer, as the model's
-    convolution output hands them over; dt (B, T, H) and A (H,) float32."""
+    convolution output hands them over; dt (B, T, H) and A (H,) float32.
+    ``fast``: dt = softplus(randn), A = -exp(0.3 randn) (about -0.7 a
+    step); ``slow``: dt log-uniform in [1e-3, 1e-1], A = -U(1, 16)."""
     dev = gen.device
     conv = torch.randn((B, T, H * P + 2 * N), generator=gen, device=dev)
     conv[..., :H * P] *= 0.5
@@ -570,34 +585,93 @@ def ssd_inputs(torch, gen, B, T, H, P, N, dtype):
     x = conv[..., :H * P].reshape(B, T, H, P)
     Bm = conv[..., H * P:H * P + N]
     Cm = conv[..., H * P + N:]
-    dt = torch.nn.functional.softplus(
-        torch.randn((B, T, H), generator=gen, device=dev))
-    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    if decay == "fast":
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, T, H), generator=gen, device=dev))
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.3)
+    else:
+        dt = torch.exp(torch.empty((B, T, H), device=dev).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen))
+        A = -torch.empty((H,), device=dev).uniform_(1.0, 16.0,
+                                                    generator=gen)
     return x, dt, A, Bm, Cm
+
+
+def ssd_dropping(torch, y_ref, x, dt, A, Bm, Cm, L, tile=SSD_DROPPED,
+                 rows=64):
+    """The plain SSD output with one tile pair's intra-chunk term left out
+    of every chunk: the control that the relative-RMS check must reject."""
+    B, T, H, P = x.shape
+    i0, j0 = tile[0] * rows, tile[1] * rows
+    y = y_ref.float().clone()
+    for c0 in range(0, T, L):
+        dA = dt[:, c0:c0 + L] * A                                 # (B,L,H)
+        cs = torch.cumsum(dA, dim=1)
+        ci = Cm[:, c0 + i0:c0 + i0 + rows].float()
+        bj = Bm[:, c0 + j0:c0 + j0 + rows].float()
+        decay = torch.exp(cs[:, i0:i0 + rows, None, :]
+                          - cs[:, None, j0:j0 + rows, :])         # (B,i,j,H)
+        w = (torch.einsum("bin,bjn->bij", ci, bj)[..., None] * decay
+             * dt[:, None, c0 + j0:c0 + j0 + rows])
+        y[:, c0 + i0:c0 + i0 + rows] -= torch.einsum(
+            "bijh,bjhp->bihp", w, x[:, c0 + j0:c0 + j0 + rows].float())
+    return y.to(y_ref.dtype)
+
+
+def check_ssd(torch, ss, ss_ref, args, chunk, dname, what):
+    """The reference's allclose on y and the state, and for bf16 relative
+    RMS <= RMS_LIMIT on both; returns (max abs err, y's relative RMS,
+    the plain y)."""
+    y, st = ss.ssd_scan(*args, chunk)
+    yr, str_ = ss_ref.ssd_ref(*args, chunk)
+    tol = TOL[dname][1]
+    err = max(check_close(torch, y, yr, tol, f"ssd y {what}"),
+              check_close(torch, st, str_, tol, f"ssd state {what}"))
+    rms = rel_rms(torch, y, yr)
+    rms_st = rel_rms(torch, st, str_)
+    if dname == "bfloat16" and not max(rms, rms_st) <= RMS_LIMIT:
+        raise AssertionError(f"ssd {what}: relative RMS error {rms} (y), "
+                             f"{rms_st} (state) above {RMS_LIMIT}")
+    return err, rms, yr
 
 
 def run_ssd(torch, ss, ss_ref, card):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    for case in SSD_CASES:
-        B, T, H, P, N, chunk, dname = case
-        args = ssd_inputs(torch, gen, B, T, H, P, N, getattr(torch, dname))
-        y, st = ss.ssd_scan(*args, chunk)
-        yr, str_ = ss_ref.ssd_ref(*args, chunk)
-        err = max(check_close(torch, y, yr, TOL[dname][1], f"ssd y {case}"),
-                  check_close(torch, st, str_, TOL[dname][1],
-                              f"ssd state {case}"))
-        print(f"phase 6: ssd_scan {case}: max_abs_err={err:.3e}", flush=True)
+    for decay, cases in (("fast", SSD_CASES), ("slow", SSD_SLOW_CASES)):
+        for case in cases:
+            B, T, H, P, N, chunk, dname = case
+            args = ssd_inputs(torch, gen, B, T, H, P, N,
+                              getattr(torch, dname), decay)
+            err, rms, _ = check_ssd(torch, ss, ss_ref, args, chunk, dname,
+                                    f"{case} {decay} decay")
+            route = ("tensor cores" if dname == "bfloat16"
+                     else "CUDA cores")
+            print(f"phase 6: ssd_scan {case} {decay} decay ({route}): "
+                  f"max_abs_err={err:.3e} rel_rms={rms:.3e}", flush=True)
 
     B, T, H, P, N, L = SSD_MAIN
-    args = ssd_inputs(torch, gen, B, T, H, P, N, torch.bfloat16)
-    y, st = ss.ssd_scan(*args, L)
-    yr, str_ = ss_ref.ssd_ref(*args, L)
-    err = max(check_close(torch, y, yr, TOL["bfloat16"][1],
-                          "ssd y mamba2 prefill shape"),
-              check_close(torch, st, str_, TOL["bfloat16"][1],
-                          "ssd state mamba2 prefill shape"))
-    del y, st, yr, str_
+    errs = {}
+    # fast decay last: its inputs are the ones timed below
+    for decay in ("slow", "fast"):
+        args = ssd_inputs(torch, gen, B, T, H, P, N, torch.bfloat16, decay)
+        err, rms, yr = check_ssd(torch, ss, ss_ref, args, L, "bfloat16",
+                                 f"mamba2 prefill shape {decay} decay")
+        errs[decay] = err
+        line = (f"phase 6: ssd_scan B={B} T={T} H={H} P={P} N={N} "
+                f"chunk={L} bf16 {decay} decay: max_abs_err={err:.3e} "
+                f"rel_rms={rms:.3e} (limit {RMS_LIMIT})")
+        if decay == "slow":
+            control = rel_rms(torch, ssd_dropping(torch, yr, *args, L), yr)
+            line += (f"; control with tile pair {SSD_DROPPED} (rows "
+                     f"{SSD_DROPPED[0] * 64}..{SSD_DROPPED[0] * 64 + 63} x "
+                     f"keys {SSD_DROPPED[1] * 64}..{SSD_DROPPED[1] * 64 + 63}"
+                     f") dropped: rel_rms={control:.3e}")
+        print(line, flush=True)
+        if decay == "slow" and control <= RMS_LIMIT:
+            raise AssertionError("the relative-RMS check passes SSD with a "
+                                 "tile pair dropped: it cannot catch one")
+        del yr
     torch.cuda.empty_cache()
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     nc = T // L
@@ -607,6 +681,12 @@ def run_ssd(torch, ss, ss_ref, card):
     # update; 2 FLOPs a multiply-add
     flops = 2.0 * (B * nc * tri * N
                    + B * H * nc * (tri * P + L * N * P + P * N * L))
+    # tile-granular work of 64-row tiles, C B^T per head: per (batch row,
+    # head, chunk) the 10 tile pairs j <= i of S and W.x, C.state^T and the
+    # state update
+    nt = L // 64
+    tile_flops = 2.0 * B * H * nc * (nt * (nt + 1) / 2 * 64 * 64 * (N + P)
+                                     + 2 * L * P * N)
     nbytes = (2 * B * T * H * P        # x in (bf16)
               + 2 * 2 * B * T * N      # B and C in
               + 4 * B * T * H + 4 * H  # dt and A (float32)
@@ -615,7 +695,7 @@ def run_ssd(torch, ss, ss_ref, card):
     row = {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": REPLACES["ssd_scan"], "launches": 0,
-        "max_abs_err": err,
+        "max_abs_err": max(errs.values()),
         "ms": time_ms(torch, lambda: ss.ssd_scan(*args, L), flush, reps=10),
         "plain_ms": time_ms(torch, lambda: ss_ref.ssd_ref(*args, L), flush,
                             reps=3, warmup=1),
@@ -625,12 +705,15 @@ def run_ssd(torch, ss, ss_ref, card):
                      > nbytes / HBM_BYTES_PER_S else "bytes"),
         "library_ms": None,     # no single PyTorch call computes SSD
     }
-    print(f"phase 6: ssd_scan B={B} T={T} H={H} P={P} N={N} chunk={L} bf16: "
+    print(f"phase 6: ssd_scan B={B} T={T} H={H} P={P} N={N} chunk={L} bf16 "
+          f"({SSD_ROUTE}): "
           f"kernel_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
           f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} B) "
           f"plain_ms={row['plain_ms']:.4f} library_ms=None "
-          f"kernel_TFLOP/s={flops / row['ms'] / 1e9:.2f} "
-          f"max_abs_err={err:.3e} on {card}", flush=True)
+          f"kernel_TFLOP/s={flops / row['ms'] / 1e9:.2f} (causal FLOPs) "
+          f"tile_TFLOP/s={tile_flops / row['ms'] / 1e9:.2f} "
+          f"({tile_flops:.4g} tile-granular FLOPs) "
+          f"max_abs_err={row['max_abs_err']:.3e} on {card}", flush=True)
     del args, flush
     torch.cuda.empty_cache()
     return row

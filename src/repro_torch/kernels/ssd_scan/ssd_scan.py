@@ -4,8 +4,10 @@ The port of the Pallas TPU kernel in the JAX package's
 ``kernels/ssd_scan/ssd_scan.py``: per (batch, head), the chunks of length
 ``chunk`` in order, the intra-chunk quadratic form, the inter-chunk term
 from the carried (P, N) state, and the state update; zero initial state.
-The kernel lives in ``csrc/ssd_scan.cu`` (design notes there) and is built
-at first use (:data:`LIB`, see :mod:`.._build`).
+The kernels live in ``csrc/ssd_scan.cu`` (design notes there) and are built
+at first use (:data:`LIB`, see :mod:`.._build`): the dtype picks one —
+bfloat16 runs on the tensor cores (``mma.sync``; W, x·w and the state
+operand rounded to bfloat16), float32 on the CUDA cores in full float32.
 
 :func:`ssd_scan` takes CUDA tensors only.  It reads x, dt, B and C through
 their strides (the last dimension contiguous), so the model's slices of
@@ -56,7 +58,8 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B,T,H,P), dt (B,T,H) and A (H,) float32, Bm/Cm (B,T,N) in x's dtype
     (float32 or bfloat16), T a multiple of ``chunk``, P, N and chunk
     multiples of 16 within :data:`MAX_P`, :data:`MAX_N`, :data:`MAX_CHUNK`,
-    last dimensions contiguous, all on one CUDA device."""
+    last dimensions contiguous, all on one CUDA device; bfloat16 x, Bm and
+    Cm 16-B aligned with strides in multiples of 8 elements."""
     if x.dim() != 4:
         raise ValueError("x must be (B, T, H, P)")
     Bsz, T, H, P = x.shape
@@ -89,6 +92,14 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
+        # the tensor-core kernel loads rows with 16-B cp.async copies
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])):
+            raise ValueError(
+                f"bfloat16 {name} must start 16-B aligned with strides in "
+                "multiples of 8 elements, got data_ptr % 16 = "
+                f"{t.data_ptr() % 16}, strides {tuple(t.stride())}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on x's device, "
                              f"got {t.device}")

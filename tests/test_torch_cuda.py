@@ -275,6 +275,65 @@ def test_cuda_ssd_scan_matches_twin(cuda, case):
     torch.testing.assert_close(st.float(), str_.float(), atol=tol, rtol=tol)
 
 
+def _ssd_slow_inputs(cuda, B, T, H, P, N, dtype):
+    """Mamba-2's published init (dt log-uniform in [1e-3, 1e-1], A =
+    -U(1, 16)): slow decay, so every key tile of a chunk reaches its later
+    rows, and x, B and C as slices of one (B, T, H*P + 2N) buffer, as the
+    model's convolution output hands them over."""
+    g = torch.Generator(device=cuda).manual_seed(T + P + N + 1)
+    conv = torch.randn((B, T, H * P + 2 * N), generator=g, device=cuda)
+    conv[..., :H * P] *= 0.5
+    conv[..., H * P:] *= 0.3
+    conv = conv.to(dtype)
+    x = conv[..., :H * P].reshape(B, T, H, P)
+    dt = torch.exp(torch.empty((B, T, H), device=cuda).uniform_(
+        np.log(1e-3), np.log(1e-1), generator=g))
+    A = -torch.empty((H,), device=cuda).uniform_(1.0, 16.0, generator=g)
+    return x, dt, A, conv[..., H * P:H * P + N], conv[..., H * P + N:]
+
+
+# the SSD shapes, then the bf16 kernel's odd widths and mamba2's widths
+SSD_SLOW_SHAPES = SSD_SHAPES + [
+    (1, 256, 2, 32, 64, 32, torch.bfloat16),
+    (2, 192, 2, 48, 80, 64, torch.bfloat16),
+    (1, 1024, 16, 64, 128, 256, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", SSD_SLOW_SHAPES)
+def test_cuda_ssd_scan_slow_decay_matches_twin(cuda, case):
+    """Slow decay makes every tile pair of the kernel count; bf16 is also
+    held to 1e-2 relative RMS (rounding gives ~3e-3, a dropped adjacent
+    key tile ~1e-1)."""
+    B, T, H, P, N, chunk, dtype = case
+    args = _ssd_slow_inputs(cuda, B, T, H, P, N, dtype)
+    y, st = ss.ssd_scan(*args, chunk)
+    yr, str_ = ssd_ref(*args, chunk)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st.float(), str_.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        for got, want in ((y, yr), (st, str_)):
+            err = torch.linalg.vector_norm(got.double() - want.double())
+            assert float(err / torch.linalg.vector_norm(want.double())) \
+                <= 1e-2
+
+
+def test_cuda_ssd_scan_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel's cp.async loads need 16-B aligned rows."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 32, 2, 16, 32, torch.bfloat16)
+    off = torch.zeros(x.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-B aligned"):
+        ss.ssd_scan(off, dt, A, Bm, Cm, 16)
+    odd = torch.zeros((1, 32, 36), dtype=torch.bfloat16,
+                      device=cuda)[..., :32]
+    with pytest.raises(ValueError, match="16-B aligned"):
+        ss.ssd_scan(x, dt, A, odd, Cm, 16)
+    ss.ssd_scan(x, dt, A, Bm, Cm, 16)          # aligned tensors pass
+
+
 def test_cuda_ssd_scan_rejects(cuda):
     args = _ssd_inputs(cuda, 1, 48, 2, 16, 32, torch.float32)
     with pytest.raises(ValueError, match="multiple of chunk"):

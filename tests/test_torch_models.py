@@ -223,3 +223,38 @@ def test_cross_entropy_matches_reference():
     labels = np.random.default_rng(9).integers(0, 33, (2, 5))
     _close(TL.cross_entropy(tl, torch.from_numpy(labels)).numpy(),
            JL.cross_entropy(jl, jnp.asarray(labels)), "cross entropy")
+
+
+def test_ssd_block_hands_the_kernel_aligned_views(monkeypatch):
+    """At mamba2-370m's widths in bf16 the SSD mixer hands the scan x, B
+    and C as in-place slices of the convolution output (rows of 2304
+    elements, at element offsets 0, 2048 and 2176: 0, 4096 and 4352 bytes),
+    and they pass the bf16 kernel's 16-B alignment checks, so the serving
+    path never meets that error.  The wrapper gets as far as its device
+    check on these CPU tensors."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as tk
+    from repro_torch.models import ssd as tssd
+    cfg = tget_config("mamba2-370m")
+    s = cfg.ssd
+    gen = torch.Generator().manual_seed(0)
+    p = tssd.ssd_init(gen, cfg.d_model, d_inner=s.d_inner, state=s.state,
+                      nheads=s.nheads, conv_width=s.conv_width,
+                      dtype=torch.bfloat16)
+    seen = []
+    real = tssd.ssd_ops.ssd
+
+    def spy(*args, chunk):
+        seen.append(args)
+        return real(*args, chunk=chunk)
+    monkeypatch.setattr(tssd.ssd_ops, "ssd", spy)
+    x = torch.randn((1, s.chunk, cfg.d_model), generator=gen).bfloat16()
+    tssd.ssd_block(p, x, d_inner=s.d_inner, state=s.state, nheads=s.nheads,
+                   chunk=s.chunk)
+    (xs, dt, A, Bm, Cm), = seen
+    row = s.d_inner + 2 * s.state
+    assert xs.stride() == (s.chunk * row, row, s.d_inner // s.nheads, 1)
+    assert Bm.stride() == Cm.stride() == (s.chunk * row, row, 1)
+    assert [t.data_ptr() - xs.data_ptr() for t in (xs, Bm, Cm)] \
+        == [0, 4096, 4352]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tk.check_inputs(xs, dt, A, Bm, Cm, s.chunk)
