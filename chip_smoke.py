@@ -13,7 +13,10 @@ Phases (any failure exits non-zero before the result line):
 2. hold each hash-partition kernel against its plain torch version on the
    card, bit for bit, at the main path's shapes (2^26 keys, the shape
    bucket of 60,000,000 rows) and at edge shapes, and time kernel, plain
-   version and library yardstick;
+   version and library yardstick; ``scatter_perm`` also at its tile edges
+   and on both sides of its bin threshold (single pass up to 512 bins,
+   three passes above), at 2^26 rows with all rows in one bin and with
+   half in one bin, and over 10 launches that must be bit-equal;
 3. the analytics main path at TPC-H SF 1 through ``lachesis_torch.Session``
    on the card: q04-, q17- and q02-like workloads over a round-robin store
    (device shuffles) and over a store partitioned on the join keys
@@ -39,8 +42,9 @@ Phases (any failure exits non-zero before the result line):
 8. the same for mamba2-370m.
 
 Launch counters are zeroed before each main path and read just after it:
-phases 3-4 (hash-partition kernels), each of phase 7's serves (flash
-attention, 24 launches per prefill), each of phase 8's (SSD scan, 48).
+phases 3-4 (hash-partition kernels; the scatter's route is printed and must
+be the single pass), each of phase 7's serves (flash attention, 24
+launches per prefill), each of phase 8's (SSD scan, 48).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -167,6 +171,23 @@ def check_kernels(torch, hp, ref, tdr, card):
     print("phase 2: edge shapes, key dtypes and the stable-order case "
           "bit-equal to the plain versions", flush=True)
 
+    # the scatter's two routes at the tile edges, both sides of the bin
+    # threshold
+    T = hp.SCATTER_TILE_ROWS
+    sgen = torch.Generator(device=dev).manual_seed(2)
+    edge_bins = (33, 257, hp.SCATTER_SINGLE_PASS_MAX_BINS,
+                 hp.SCATTER_SINGLE_PASS_MAX_BINS + 1)
+    for bins in edge_bins:
+        for n in (1, 31, T - 1, T, T + 1, 5 * T + 7):
+            pids, counts = scatter_pids(torch, sgen, n, bins, "uniform")
+            equal(hp.scatter_perm(pids, counts),
+                  ref.scatter_perm_ref(pids, counts),
+                  f"scatter_perm n={n} bins={bins} "
+                  f"({hp.scatter_route(bins)})")
+    print(f"phase 2: scatter_perm tile edges n = 1..5T+7 (T={T}) at bins "
+          f"{edge_bins} ({[hp.scatter_route(b) for b in edge_bins]}) "
+          "bit-equal to the plain version", flush=True)
+
     # main-path shapes, timed
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     k = keys(MAIN_N)
@@ -183,6 +204,7 @@ def check_kernels(torch, hp, ref, tdr, card):
         d = hp.scatter_perm(pp, pc)
         rd = ref.scatter_perm_ref(pp, pc)
         equal(d, rd, f"scatter_perm N=2^26 m={m}")
+        check_scatter_main(torch, hp, ref, sgen, pp, pc, d, m, equal)
         errs = {
             "hash_partition": max(int((p - rp).abs().max()),
                                   int((c - rc).abs().max())),
@@ -234,6 +256,50 @@ def check_kernels(torch, hp, ref, tdr, card):
     del flush, k
     torch.cuda.empty_cache()
     return results
+
+
+def scatter_pids(torch, gen, n, bins, case):
+    """(pids, counts) of n rows over ``bins`` bins: uniform, all in one bin,
+    or skewed (half the rows in one bin)."""
+    dev = gen.device
+    pids = torch.randint(0, bins, (n,), dtype=torch.int32, device=dev,
+                         generator=gen)
+    if case == "one_bin":
+        pids.fill_(bins // 2)
+    elif case == "skewed":
+        pids[torch.rand(n, device=dev, generator=gen) < 0.5] = min(3, bins - 1)
+    return pids, torch.bincount(pids, minlength=bins).to(torch.int32)
+
+
+def check_scatter_main(torch, hp, ref, gen, pp, pc, d, m, equal):
+    """scatter_perm at 2^26 rows beyond the padded SF-10 pids: all rows in
+    one bin, half in one bin, both sides of the bin threshold, and ten
+    launches on the padded pids bit-equal to the first."""
+    bins = m + 1
+    for case in ("one_bin", "skewed"):
+        pids, counts = scatter_pids(torch, gen, MAIN_N, bins, case)
+        equal(hp.scatter_perm(pids, counts),
+              ref.scatter_perm_ref(pids, counts),
+              f"scatter_perm N=2^26 bins={bins} {case}")
+    sides = (hp.SCATTER_SINGLE_PASS_MAX_BINS,
+             hp.SCATTER_SINGLE_PASS_MAX_BINS + 1)
+    if m == M:
+        for b in sides:
+            pids, counts = scatter_pids(torch, gen, MAIN_N, b, "uniform")
+            equal(hp.scatter_perm(pids, counts),
+                  ref.scatter_perm_ref(pids, counts),
+                  f"scatter_perm N=2^26 bins={b} ({hp.scatter_route(b)})")
+    del pids, counts
+    for i in range(10):
+        equal(hp.scatter_perm(pp, pc), d,
+              f"scatter_perm N=2^26 m={m}: launch {i + 1} of 10")
+    print(f"phase 2: scatter_perm N=2^26 bins={bins} "
+          f"({hp.scatter_route(bins)}): padded SF-10 pids ({SF10_LINES} "
+          f"valid, {MAIN_N - SF10_LINES} in bin {m}), one bin and skewed "
+          "bit-equal to the plain version"
+          + (f"; bins {sides} ({[hp.scatter_route(b) for b in sides]}) too"
+             if m == M else "")
+          + "; 10 launches bit-equal", flush=True)
 
 
 # -- phase 3: TPC-H SF 1 through the Session -----------------------------------
@@ -901,7 +967,11 @@ def main() -> int:
     run_sf10(torch, np, lt, tcore, export_layout)
     print(f"phase 4: done in {time.perf_counter() - t4:.1f} s", flush=True)
     launches = dict(hp.LAUNCHES)
-    print(f"main path launches (phases 3-4): {launches}", flush=True)
+    routes = dict(hp.SCATTER_ROUTES)
+    print(f"main path launches (phases 3-4): {launches}; scatter_perm "
+          f"routes {routes}", flush=True)
+    if routes["single_pass"] == 0:
+        return fail("the main path never took the single-pass scatter")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

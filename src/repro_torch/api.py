@@ -272,6 +272,24 @@ class Session:
         ds = self.store.read(name)
         return self.store.repartition(ds, partitioner, swap=swap)
 
+    def flush(self, name: Optional[str] = None) -> int:
+        """Persist pending generations to the durable tier.  The store is
+        in memory only (``store_path=`` is not ported), so nothing is
+        published: 0, as the reference answers without ``store_path``."""
+        return 0
+
+    @property
+    def store_path(self) -> Optional[str]:
+        """None: the store has no durable tier."""
+        return None
+
+    # -- cluster passthrough -----------------------------------------------------
+    @property
+    def directory(self):
+        """The store's PartitionDirectory: None off-cluster, and
+        ``cluster=`` is not ported."""
+        return None
+
     # -- observability ---------------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
         """Versioned JSON snapshot of every metric the session's registry
@@ -282,12 +300,42 @@ class Session:
         """The same snapshot in Prometheus text exposition format."""
         return self.metrics_registry.prometheus_text()
 
+    # The durable telemetry history lives under a store root; on the
+    # in-memory store these answer as the reference's do without
+    # ``store_path``.
+    def telemetry(self, limit: Optional[int] = None) -> List[Any]:
+        """Per-run records of the durable telemetry history: none."""
+        return []
+
+    @property
+    def telemetry_store(self):
+        return None
+
+    @property
+    def watchdog(self):
+        return None
+
+    def export_node_metrics(self, node: Optional[str] = None) -> Optional[str]:
+        """Where the node's metrics snapshot was written: nowhere."""
+        return None
+
+    def cluster_metrics(self) -> Dict[str, Any]:
+        """The merged snapshot over every node's exported metrics: empty."""
+        return {"version": _obs_metrics.METRICS_SCHEMA_VERSION,
+                "nodes": [], "metrics": {}}
+
+    def cluster_metrics_text(self) -> str:
+        """The merged cluster view as Prometheus text exposition."""
+        return _obs_metrics.snapshot_prometheus_text(self.cluster_metrics())
+
+    def explain_decisions(self, limit: int = 50) -> List[Dict[str, Any]]:
+        """Why-records of attached autopilots' decisions: none, since
+        ``autopilot`` is not ported and there is no durable log."""
+        return []
+
     # -- not ported yet --------------------------------------------------------
     def export_trace(self, path: Optional[str] = None):
         raise _not_ported("export_trace", "obs/export.py")
-
-    def telemetry(self, limit: Optional[int] = None):
-        raise _not_ported("telemetry", "obs/telemetry.py")
 
     def plan_rebalance(self, **kw):
         raise _not_ported("plan_rebalance", "cluster/")

@@ -6,7 +6,10 @@ The port of the Pallas TPU kernels in the JAX package's
 * :func:`hash_partition` — Wang hash + ``% m`` + an ``(m,)`` histogram;
 * :func:`hash_partition_padded` — the same over a power-of-two bucket, rows
   at position ``>= n_valid`` routed to the overflow partition ``m``;
-* :func:`scatter_perm` — the stable counting-sort destination of every row.
+* :func:`scatter_perm` — the stable counting-sort destination of every row:
+  one pass with a decoupled look-back over tiles of
+  :data:`SCATTER_TILE_ROWS` rows up to :data:`SCATTER_SINGLE_PASS_MAX_BINS`
+  bins, three passes above.
 
 The kernels live in ``csrc/hash_partition.cu`` (design notes there).  They
 are compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain
@@ -27,19 +30,31 @@ import torch
 
 from .._build import CudaLibrary, raise_on, stream
 
-#: rows one warp owns in the scatter's tile passes (a multiple of 32)
-SCATTER_TILE_ROWS = 2048
+#: rows of one single-pass scatter tile, and the most bins the single pass
+#: takes (more go to the three passes): the kernel's ``kTileRows`` and
+#: ``kSinglePassMaxBins``, which the tests hold equal to these
+SCATTER_TILE_ROWS = 16384
+SCATTER_SINGLE_PASS_MAX_BINS = 512
 #: most rows a launch takes: destinations and counts are int32
 MAX_ROWS = 2 ** 31 - 1
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"hash_partition": 0, "hash_partition_padded": 0,
                             "scatter_perm": 0}
+#: ``scatter_perm`` launches by route since the last :func:`reset_launches`
+SCATTER_ROUTES: Dict[str, int] = {"single_pass": 0, "three_pass": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for table in (LAUNCHES, SCATTER_ROUTES):
+        for k in table:
+            table[k] = 0
+
+
+def scatter_route(bins: int) -> str:
+    """The scatter kernels ``bins`` bins go to."""
+    return ("single_pass" if bins <= SCATTER_SINGLE_PASS_MAX_BINS
+            else "three_pass")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -48,8 +63,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.hp_max_bins.restype = i32
     lib.hp_hash_partition.argtypes = [p, p, p, i64, i64, i32, i32, p]
     lib.hp_hash_partition.restype = i32
-    lib.hp_scatter_perm.argtypes = [p, p, p, p, i64, i32, i32, p]
+    lib.hp_scatter_perm.argtypes = [p, p, p, p, i64, i32, p]
     lib.hp_scatter_perm.restype = i32
+    lib.hp_scatter_scratch_bytes.argtypes = [i64, i32]
+    lib.hp_scatter_scratch_bytes.restype = i64
 
 
 LIB = CudaLibrary("hash_partition",
@@ -120,7 +137,9 @@ def hash_partition_padded(keys: torch.Tensor, n_valid: int,
 def scatter_perm(pids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """(pids (N,) int32, counts (bins,) int32) on CUDA → dest (N,) int32,
     row i's position in the stable sort of ``pids``.  Pids outside
-    ``[0, bins)`` move no real row; their own dest is unspecified."""
+    ``[0, bins)`` move no real row; their own dest is 0.  One launch up to
+    :data:`SCATTER_SINGLE_PASS_MAX_BINS` bins, three above; the library
+    sizes the scratch (:data:`SCATTER_ROUTES` counts the route)."""
     _check(pids, "pids")
     _check(counts, "counts")
     if counts.device != pids.device:
@@ -132,13 +151,13 @@ def scatter_perm(pids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     dest = torch.empty(n, dtype=torch.int32, device=pids.device)
     if n == 0:
         return dest
-    n_tiles = -(-n // SCATTER_TILE_ROWS)
-    scratch = torch.empty(bins * n_tiles, dtype=torch.int32,
-                          device=pids.device)
+    scratch = torch.empty(int(lib.hp_scatter_scratch_bytes(n, bins)),
+                          dtype=torch.uint8, device=pids.device)
     with torch.cuda.device(pids.device):
         err = lib.hp_scatter_perm(pids.data_ptr(), counts.data_ptr(),
                                   dest.data_ptr(), scratch.data_ptr(), n,
-                                  bins, SCATTER_TILE_ROWS, stream())
+                                  bins, stream())
     raise_on(err, "scatter_perm")
     LAUNCHES["scatter_perm"] += 1
+    SCATTER_ROUTES[scatter_route(bins)] += 1
     return dest

@@ -101,6 +101,79 @@ def test_cuda_launch_counters(cuda):
                            "scatter_perm": 1}
 
 
+def _scatter_pids(cuda, n, bins, case, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + n + bins)
+    pids = torch.randint(0, bins, (n,), dtype=torch.int32, device=cuda,
+                         generator=g)
+    if case == "one_bin":
+        pids.fill_(bins // 2)
+    elif case == "skewed":          # half the rows in one bin
+        half = torch.rand(n, device=cuda, generator=g) < 0.5
+        pids[half] = min(3, bins - 1)
+    counts = torch.bincount(pids, minlength=bins).to(torch.int32)
+    return pids, counts
+
+
+SCATTER_BINS = [1, 33, 257, tk.SCATTER_SINGLE_PASS_MAX_BINS,
+                tk.SCATTER_SINGLE_PASS_MAX_BINS + 1, 4097]
+
+
+@pytest.mark.parametrize("case", ["uniform", "one_bin", "skewed"])
+@pytest.mark.parametrize("bins", SCATTER_BINS)
+def test_cuda_scatter_perm_routes_match_twin(cuda, bins, case):
+    """Both routes, on both sides of the bin threshold, at 2^22 rows."""
+    pids, counts = _scatter_pids(cuda, 1 << 22, bins, case)
+    tk.reset_launches()
+    dest = tk.scatter_perm(pids, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(dest, tref.scatter_perm_ref(pids, counts))
+    assert tk.SCATTER_ROUTES[tk.scatter_route(bins)] == 1
+    assert tk.LAUNCHES["scatter_perm"] == 1
+
+
+@pytest.mark.parametrize("bins", [33, tk.SCATTER_SINGLE_PASS_MAX_BINS,
+                                  tk.SCATTER_SINGLE_PASS_MAX_BINS + 1])
+def test_cuda_scatter_perm_tile_edges(cuda, bins):
+    T = tk.SCATTER_TILE_ROWS
+    for n in (1, 31, T - 1, T, T + 1, 5 * T + 7):
+        pids, counts = _scatter_pids(cuda, n, bins, "uniform")
+        dest = tk.scatter_perm(pids, counts)
+        torch.cuda.synchronize()
+        assert torch.equal(dest, tref.scatter_perm_ref(pids, counts)), n
+
+
+def test_cuda_scatter_perm_unaligned_view_and_sentinels(cuda):
+    """A view one element off (no 16-B loads) and sentinel pids -1 and
+    >= bins: real rows keep their places, sentinel rows get 0."""
+    for bins in (33, 257):
+        _check_unaligned_view_and_sentinels(cuda, bins)
+
+
+def _check_unaligned_view_and_sentinels(cuda, bins):
+    n = 5 * tk.SCATTER_TILE_ROWS + 7
+    pids, _ = _scatter_pids(cuda, n + 1, bins, "uniform")
+    pids[::97] = -1
+    pids[5::89] = bins + 4
+    view = pids[1:]
+    real = (view >= 0) & (view < bins)
+    counts = torch.bincount(view[real], minlength=bins).to(torch.int32)
+    dest = tk.scatter_perm(view, counts)
+    want = tref.scatter_perm_ref(torch.where(real, view, bins), counts)
+    torch.cuda.synchronize()
+    assert torch.equal(dest[real], want[real])
+    assert not bool(dest[~real].any())
+
+
+def test_cuda_scatter_perm_is_deterministic(cuda):
+    """Ten launches on one input are bit-equal: a look-back race would
+    show as a launch that differs."""
+    pids, counts = _scatter_pids(cuda, 1 << 22, 33, "skewed", seed=1)
+    first = tk.scatter_perm(pids, counts)
+    for _ in range(9):
+        assert torch.equal(tk.scatter_perm(pids, counts), first)
+    assert torch.equal(first, tref.scatter_perm_ref(pids, counts))
+
+
 @pytest.mark.parametrize("dtype", ["int64", "float32", "float64", "bool"])
 def test_cuda_key_normalization_matches_cpu(cuda, dtype):
     rng = np.random.default_rng(3)
@@ -159,6 +232,7 @@ def test_cuda_session_matches_host(cuda, partitioned):
     for k in hnew:
         np.testing.assert_array_equal(dnew[k], hnew[k])
     assert tk.LAUNCHES["scatter_perm"] > 0
+    assert tk.SCATTER_ROUTES["single_pass"] == tk.LAUNCHES["scatter_perm"]
     assert tk.LAUNCHES["hash_partition"] > 0
     if not partitioned:
         assert tk.LAUNCHES["hash_partition_padded"] > 0

@@ -28,7 +28,8 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["internlm2-1.8b", "mamba2-370m"]
+ARCHS = ["internlm2-1.8b", "mamba2-370m", "gemma-7b", "gemma2-27b",
+         "qwen1.5-110b"]
 TOL = 1e-4
 
 

@@ -350,9 +350,34 @@ def test_device_default_and_cpu_request():
     assert host.backend == "host" and host.device.type == "cpu"
 
 
+PASSTHROUGHS = {
+    "flush": lambda s: s.flush(),
+    "flush_name": lambda s: s.flush("submissions"),
+    "store_path": lambda s: s.store_path,
+    "directory": lambda s: s.directory,
+    "telemetry_store": lambda s: s.telemetry_store,
+    "watchdog": lambda s: s.watchdog,
+    "export_node_metrics": lambda s: s.export_node_metrics(),
+    "cluster_metrics": lambda s: s.cluster_metrics(),
+    "cluster_metrics_text": lambda s: s.cluster_metrics_text(),
+    "telemetry": lambda s: s.telemetry(),
+    "telemetry_limit": lambda s: s.telemetry(limit=3),
+    "explain_decisions": lambda s: s.explain_decisions(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PASSTHROUGHS))
+def test_in_memory_passthroughs_match_reference(name):
+    """On a memory-only store the reference answers every storage,
+    cluster and telemetry passthrough; the port answers the same."""
+    ask = PASSTHROUGHS[name]
+    want = ask(lachesis.Session(num_workers=4))
+    got = ask(lachesis_torch.Session(num_workers=4, device="cpu"))
+    assert type(got) is type(want) and got == want
+
+
 @pytest.mark.parametrize("call", ["autopilot", "serve", "export_trace",
-                                  "telemetry", "plan_rebalance",
-                                  "rebalance"])
+                                  "plan_rebalance", "rebalance"])
 def test_unported_surfaces_name_their_roadmap_item(call):
     sess = lachesis_torch.Session(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
