@@ -39,12 +39,26 @@ Phases (any failure exits non-zero before the result line):
    float32; finite logits; decode logits equal to a prefill's at two
    positions (within 5e-2 of the logits' max-abs in bf16, 1e-3 in
    float32); a profiler trace of one prefill and two decode steps;
-8. the same for mamba2-370m.
+8. the same for mamba2-370m;
+9. the durable store and the history → advisor loop (Alg. 3) across
+   restarts: q04-like runs over SF 1 logged into a history on the card and
+   on the host (the advisor picks orderkey on both); SF-10 lineitem (phase
+   4's arrays) and orders written under it into a durable store on the card
+   and into a host twin, whose segments must be sha256-equal; a child
+   process (this script with ``--phase9-child``) reopens the device store
+   under a memory budget that holds one dataset, runs the q04-like consumer
+   with both shuffles elided (equal to the host backend), spills and
+   prefetches, logs q17-like runs until the advisor picks partkey and
+   applies it device to device; the parent reopens generation 1 and holds
+   it to the host twin's after the same repartition.  It runs in a
+   temporary directory under ``build/`` that needs about 8 GB of free disk
+   (checked first) and is removed at the end.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
 be the single pass), each of phase 7's serves (flash attention, 24
-launches per prefill), each of phase 8's (SSD scan, 48).
+launches per prefill), each of phase 8's (SSD scan, 48), and phase 9 (the
+hash-partition kernels again, the child's launches added).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -79,6 +93,7 @@ REPLACES = {
 }
 MAIN_N = 1 << 26                    # shape bucket of SF-10 lineitem
 SF10_LINES = 60_000_000
+SF10_ORDERS = 15_000_000
 M = 32
 
 
@@ -354,6 +369,7 @@ def tpch_queries(Workload):
 
 
 def run_tpch(torch, np, lt, tcore, TableVal):
+    """Returns the SF-1 tables (phase 9's history runs over them)."""
     orders, lineitem, part = tpch_tables(np, 1.0)
     tables = {"orders": orders, "lineitem": lineitem, "part": part}
     for qname, (build, keyed) in tpch_queries(lt.Workload).items():
@@ -402,13 +418,15 @@ def run_tpch(torch, np, lt, tcore, TableVal):
                 rows = max(rows, hv.num_rows)
             print(f"phase 3: {qname} {layout}: device == host on every node "
                   f"(largest table {rows} rows)", flush=True)
+    return orders, lineitem, part
 
 
 # -- phase 4: SF 10 write and device-to-device repartition ---------------------
 
 def run_sf10(torch, np, lt, tcore, export_layout):
+    """Returns the SF-10 lineitem columns (phase 9 stores them again)."""
     rng = np.random.default_rng(10)
-    n_orders, n_parts = 15_000_000, 2_000_000
+    n_orders, n_parts = SF10_ORDERS, 2_000_000
     lineitem = {"orderkey": rng.integers(0, n_orders, SF10_LINES),
                 "partkey": rng.integers(0, n_parts, SF10_LINES),
                 "qty": rng.integers(1, 50, SF10_LINES).astype(np.float32),
@@ -453,6 +471,7 @@ def run_sf10(torch, np, lt, tcore, export_layout):
                 raise AssertionError(f"SF-10 {step}: column {k} differs")
         print(f"phase 4: SF-10 {step} layout bit-equal to the host backend "
               f"({int(h['counts'].sum())} rows)", flush=True)
+    return lineitem
 
 
 # -- phase 5: flash attention against its plain version ------------------------
@@ -911,6 +930,440 @@ def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
     return launches
 
 
+# -- phase 9: the durable store and the history → advisor loop at SF 10 --------
+
+# two stores (the device one and its host twin), each holding SF-10
+# lineitem twice (generations 0 and 1) and orders once, plus slack
+PHASE9_SLACK_BYTES = 1 << 30
+
+
+def p9_loader(Workload):
+    """The producer: parses raw lineitem and writes ``lineitem``."""
+    wl = Workload("tpch-loader")
+    raw = wl.scan("lineitem_raw")
+    wl.write(wl.map(raw, fn=lambda x: x, tag="parse_tbl"), "lineitem")
+    return wl
+
+
+def p9_q04(Workload):
+    """q04-like: lineitem ⋈ orders on orderkey, a selective filter."""
+    wl = Workload("q04-like")
+    li, od = wl.scan("lineitem"), wl.scan("orders")
+    j = wl.join(li, od, left_key=li["orderkey"], right_key=od["orderkey"],
+                tag="li_orders")
+    wl.filter(j, j["qty"] > 45)
+    return wl
+
+
+def p9_q17(Workload):
+    """q17-like: lineitem ⋈ part on partkey, a selective filter."""
+    wl = Workload("q17-like")
+    li, pt = wl.scan("lineitem"), wl.scan("part")
+    j = wl.join(li, pt, left_key=li["partkey"], right_key=pt["partkey"],
+                tag="li_part")
+    wl.filter(j, j["size"] > 45)
+    return wl
+
+
+def p9_result(res, TableVal):
+    """The workload's last set-valued node (the filter's output)."""
+    nid = max(n for n, v in res.values.items() if isinstance(v, TableVal))
+    return res.values[nid]
+
+
+def p9_same_table(np, got, want, what):
+    if not np.array_equal(got.counts, want.counts):
+        raise AssertionError(f"{what}: counts differ from the host backend")
+    if set(got.columns) != set(want.columns):
+        raise AssertionError(f"{what}: columns differ from the host backend")
+    for k, col in want.columns.items():
+        if got.columns[k].dtype != col.dtype \
+                or not np.array_equal(got.columns[k], col):
+            raise AssertionError(f"{what}: column {k} differs from the host "
+                                 "backend")
+
+
+def p9_files(root):
+    """{path under datasets/: absolute path} of every segment and manifest
+    of the store at ``root``."""
+    base = Path(root) / "datasets"
+    return {str(f.relative_to(base)): f for f in sorted(base.rglob("*"))
+            if f.is_file() and (f.suffix == ".seg"
+                                or f.name.startswith("manifest-"))}
+
+
+def p9_sha256(path):
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def p9_manifest(path):
+    man = json.loads(Path(path).read_text())
+    man.pop("created_at")
+    for entry in man["generation_log"]:
+        entry.pop("created_at")
+    return man
+
+
+def p9_compare_stores(a, b, prefixes=("",)):
+    """Every segment of store ``a`` byte-equal to ``b``'s (sha256), every
+    manifest equal apart from its timestamps, over the files whose path
+    under ``datasets/`` starts with one of ``prefixes``.  Returns (files,
+    segment bytes)."""
+    fa, fb = ({k: v for k, v in p9_files(root).items()
+               if k.startswith(tuple(prefixes))} for root in (a, b))
+    if sorted(fa) != sorted(fb) or not fa:
+        raise AssertionError(f"store files differ: {sorted(fa)} vs "
+                             f"{sorted(fb)}")
+    segs = [k for k in fa if k.endswith(".seg")]
+    with ThreadPoolExecutor(8) as pool:
+        da = list(pool.map(p9_sha256, [fa[k] for k in segs]))
+        db = list(pool.map(p9_sha256, [fb[k] for k in segs]))
+    for k, x, y in zip(segs, da, db):
+        if x != y:
+            raise AssertionError(f"segment {k}: device store differs from "
+                                 "the host store")
+    for k in fa:
+        if not k.endswith(".seg") and p9_manifest(fa[k]) != p9_manifest(fb[k]):
+            raise AssertionError(f"manifest {k} differs apart from times")
+    return len(fa), sum(fa[k].stat().st_size for k in segs)
+
+
+def p9_history(np, lt, tcore, HistoryStore, backend, path, tables):
+    """The loader and q04-like runs over SF-1 tables, observed into a
+    history; returns (history, the advisor's decision for lineitem)."""
+    hist = HistoryStore(path)
+    sess = lt.Session(num_workers=M, backend=backend, history=hist)
+    sess.write("lineitem_raw", tables["lineitem"])
+    sess.write("orders", tables["orders"])
+    loader, q04 = p9_loader(lt.Workload), p9_q04(lt.Workload)
+    for i in range(2):
+        sess.run(loader, timestamp=10.0 * i)
+        res = sess.run(q04, timestamp=10.0 * i + 5)
+        if res.stats.shuffles_performed != 2:
+            raise AssertionError(f"{backend}: the history's q04 runs over a "
+                                 "round-robin store must shuffle both sides")
+    return hist
+
+
+def p9_child(cfg) -> int:
+    """Phase 9's second process: reopen the device store, elide, spill,
+    prefetch, log q17-like runs until the advisor picks partkey, and
+    repartition device to device.  Prints one JSON line last."""
+    import torch
+    if not torch.cuda.is_available():
+        return fail("no CUDA device is available")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    import lachesis_torch as lt
+    import repro_torch.core as tcore
+    from repro_torch.core.executor import TableVal
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+
+    card = card_line()
+    out = {"launches": {}}
+    hist = tcore.HistoryStore(cfg["history"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = lt.Session(num_workers=M, store_path=cfg["a"], history=hist,
+                      memory_budget_bytes=cfg["budget"])
+    out["attach_s"] = time.perf_counter() - t0
+    store = sess.store
+    print(f"phase 9 (child): attach_s={out['attach_s']:.4f} "
+          f"({sorted(store.datasets)}; page cache warm: written by the "
+          f"parent just before) on {card}", flush=True)
+    for name, sigs in cfg["sigsets"].items():
+        ds = store.datasets[name]
+        if ds.generation != 0 or list(ds.partitioner.signature_set()) != sigs:
+            raise AssertionError(f"{name} reopened at gen {ds.generation} "
+                                 f"under {ds.partitioner.signature_set()}")
+        if not ds.spilled:
+            raise AssertionError(f"{name} did not reopen as memmap views")
+
+    # the q04-like consumer: both partition nodes elided, equal to the
+    # host backend over the host store (run beside it in a thread: the
+    # two are host numpy, and numpy lets go of the GIL)
+    hp.reset_launches()
+    host = lt.Session(backend="host", store_path=cfg["b"])
+    with ThreadPoolExecutor(1) as pool:
+        hrun = pool.submit(host.run, p9_q04(lt.Workload))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.run(p9_q04(lt.Workload), timestamp=100.0)
+        out["q04_s"] = time.perf_counter() - t0
+        hres = hrun.result()
+    st = res.stats
+    if (st.shuffles_elided, st.shuffles_performed, st.shuffle_bytes) != \
+            (2, 0, 0):
+        raise AssertionError(f"reopened q04: elided {st.shuffles_elided}, "
+                             f"performed {st.shuffles_performed}, "
+                             f"{st.shuffle_bytes} shuffle bytes")
+    got = p9_result(res, TableVal)
+    del res
+    p9_same_table(np, got, p9_result(hres, TableVal), "reopened q04")
+    rows = got.num_rows
+    del hres, host, got
+    print(f"phase 9 (child): q04-like over the reopened store: elided 2, "
+          f"shuffles 0, shuffle_bytes 0, {rows} rows equal to the host "
+          f"backend's (run beside it); wall_s={out['q04_s']:.4f} "
+          f"rehydrations="
+          f"{st.storage_rehydrations} on {card}", flush=True)
+
+    # spill and prefetch under the budget (room for one dataset)
+    io0 = store.io_snapshot()
+    torch.cuda.synchronize()
+    li = sess.read("lineitem")              # prefetch host→device
+    io1 = store.io_snapshot()
+    if store.is_spilled("lineitem") or any(
+            not isinstance(v, torch.Tensor) or v.device.type != "cuda"
+            for v in li.columns.values()):
+        raise AssertionError("reading lineitem did not prefetch it to cuda")
+    padded = li.padded_bytes
+    kept = {k: v.clone() for k, v in li.columns.items()}
+    prefetched = io1["bytes_read"] - io0["bytes_read"]
+    out["prefetch_s"] = io1["read_s"] - io0["read_s"]
+    print(f"phase 9 (child): first-read prefetch (H2D from the page cache) "
+          f"{prefetched} B in {out['prefetch_s']:.4f} s "
+          f"({prefetched / out['prefetch_s'] / 1e9:.2f} GB/s) on {card}",
+          flush=True)
+    marks = {}
+
+    def mark(key):
+        def fn():
+            if key not in marks:
+                torch.cuda.synchronize()
+                marks[key] = (time.perf_counter(),
+                              torch.cuda.memory_allocated())
+        return fn
+    store.set_sync_point("spill:column", mark("start"))
+    store.set_sync_point("spill:post_swap", mark("end"))
+    sess.read("orders")                     # prefetch orders, spill lineitem
+    store.set_sync_point("spill:column", None)
+    store.set_sync_point("spill:post_swap", None)
+    if not store.is_spilled("lineitem") or "end" not in marks:
+        raise AssertionError("reading orders did not spill lineitem")
+    freed = marks["start"][1] - marks["end"][1]
+    out["spill_s"] = marks["end"][0] - marks["start"][0]
+    out["spill_freed_bytes"] = freed
+    if freed < padded:
+        raise AssertionError(f"spilling lineitem freed {freed} B of device "
+                             f"memory, less than its {padded} padded bytes")
+    print(f"phase 9 (child): reading orders spilled lineitem: "
+          f"spill_s={out['spill_s']:.4f}, memory_allocated dropped by "
+          f"{freed} B (lineitem padded {padded} B) on {card}", flush=True)
+    li = sess.read("lineitem")
+    for k, v in li.columns.items():
+        if v.device.type != "cuda" or not torch.equal(v, kept[k]):
+            raise AssertionError(f"lineitem column {k} changed across a "
+                                 "spill and a prefetch")
+    del kept
+    print("phase 9 (child): lineitem prefetched to cuda again, bit-equal",
+          flush=True)
+
+    # the history moves: q17-like runs until the advisor picks partkey
+    _orders, lineitem1, part1 = tpch_tables(np, 1.0)
+    s17 = lt.Session(num_workers=M, history=hist)
+    s17.write("lineitem", lineitem1)
+    s17.write("part", part1)
+    q17, loader = p9_q17(lt.Workload), p9_loader(lt.Workload)
+    want = tcore.enumerate_candidates(q17.graph, "lineitem")[0].signature()
+    t = 110.0
+    for n_q17 in range(1, 13):
+        s17.run(q17, timestamp=t)
+        dec = tcore.partitioning_creation(loader, "lineitem", hist,
+                                          dataset_bytes=cfg["dataset_bytes"],
+                                          now=t + 1)
+        t += 10.0
+        if dec.candidate.signature() == want:
+            break
+    else:
+        raise AssertionError("12 q17-like runs and the advisor still keeps "
+                             f"{dec.candidate.signature()}")
+    out["q17_runs"] = n_q17
+    out["decision"] = dec.candidate.signature()
+    print(f"phase 9 (child): after {n_q17} q17-like runs the advisor picks "
+          f"{dec.candidate.signature()} (history of "
+          f"{len(hist.records)} records)", flush=True)
+    del s17
+
+    # apply: d2d repartition of the reopened SF-10 lineitem, persisted
+    launched = dict(hp.LAUNCHES)
+    hp.reset_launches()
+    io0 = store.io_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, moved = tcore.apply_decision(store, dec)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    io1 = store.io_snapshot()
+    d2d = dict(hp.LAUNCHES)
+    if store.write_log[-1]["path"] != "d2d" or d2d["hash_partition"] == 0 \
+            or d2d["scatter_perm"] == 0:
+        raise AssertionError(f"apply_decision did not run d2d through the "
+                             f"kernels: {store.write_log[-1].get('path')}, "
+                             f"{d2d}")
+    if store.generation_of("lineitem") != 1 or \
+            store.durable.load_manifest("lineitem").generation != 1:
+        raise AssertionError("generation 1 of lineitem was not persisted")
+    out["persist_s"] = io1["write_s"] - io0["write_s"]
+    out["repartition_s"] = apply_s - out["persist_s"]
+    print(f"phase 9 (child): apply_decision d2d: {new.num_rows} rows, "
+          f"moved_bytes={moved}, repartition_s={out['repartition_s']:.4f} "
+          f"+ persist_s={out['persist_s']:.4f} "
+          f"({io1['bytes_written'] - io0['bytes_written']} B) "
+          f"launches {d2d} on {card}", flush=True)
+    out["launches"] = {k: launched[k] + d2d[k] for k in launched}
+
+    profiles = sess.telemetry()
+    if [(p.workload, p.shuffles_elided, p.shuffles_performed)
+            for p in profiles] != [("q04-like", 2, 0)]:
+        raise AssertionError(f"telemetry: {profiles}")
+    out["profiles"] = len(profiles)
+    print(json.dumps({"child": out}), flush=True)
+    return 0
+
+
+def run_durable(torch, np, lt, tcore, lineitem, tpch1):
+    """Phase 9 in the parent: history → advisor → durable SF-10 write on
+    the card and on the host; the child process; the reopen."""
+    import shutil
+    import tempfile
+    from repro_torch.core import HistoryStore
+
+    card = card_line()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    li_bytes = sum(v.nbytes for v in lineitem.values())
+    need = 2 * (2 * li_bytes + 20 * SF10_ORDERS) * 33 // 32 \
+        + PHASE9_SLACK_BYTES
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise AssertionError(f"phase 9 needs {need} B of free disk under "
+                             f"{build}, and {free} B are free")
+    tmp = Path(tempfile.mkdtemp(prefix="phase9-", dir=build))
+    try:
+        return _run_durable(torch, np, lt, tcore, HistoryStore, lineitem,
+                            tpch1, tmp, card, li_bytes)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_durable(torch, np, lt, tcore, HistoryStore, lineitem, tpch1, tmp,
+                 card, li_bytes):
+    orders1, lineitem1, _part1 = tpch1
+    tables = {"lineitem": lineitem1, "orders": orders1}
+    t0 = time.perf_counter()
+    hists = {b: p9_history(np, lt, tcore, HistoryStore, b,
+                           str(tmp / f"history-{b}.jsonl"), tables)
+             for b in ("device", "host")}
+    loader, q04 = p9_loader(lt.Workload), p9_q04(lt.Workload)
+    decs = {b: tcore.partitioning_creation(loader, "lineitem", h,
+                                           dataset_bytes=li_bytes, now=20.0)
+            for b, h in hists.items()}
+    want = tcore.enumerate_candidates(q04.graph, "lineitem")[0]
+    d, h = decs["device"], decs["host"]
+    if d.candidate.signature() != want.signature() \
+            or (h.candidate.signature(), h.action_index) != \
+            (d.candidate.signature(), d.action_index):
+        raise AssertionError(f"advisor: device {d.candidate.signature()}, "
+                             f"host {h.candidate.signature()}, want "
+                             f"{want.signature()}")
+    if [r.candidate_stats for r in hists["device"].records] != \
+            [r.candidate_stats for r in hists["host"].records]:
+        raise AssertionError("history candidate_stats differ between the "
+                             "device and host backends")
+    print(f"phase 9: history of {len(hists['device'].records)} runs (loader "
+          f"+ q04-like over SF 1): the advisor picks "
+          f"{d.candidate.signature()} on both backends, candidate_stats "
+          f"equal ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    rng = np.random.default_rng(19)
+    orders = {"orderkey": np.arange(SF10_ORDERS, dtype=np.int64),
+              "custkey": rng.integers(0, SF10_ORDERS // 10, SF10_ORDERS),
+              "odate": rng.integers(0, 2556, SF10_ORDERS).astype(np.int32)}
+    by_order = tcore.enumerate_candidates(q04.graph, "orders")[0]
+    cands = {"lineitem": d.candidate, "orders": by_order}
+    data = {"lineitem": lineitem, "orders": orders}
+    roots = {"device": str(tmp / "A"), "host": str(tmp / "B")}
+    padded = {}
+    for backend, root in roots.items():
+        sess = lt.Session(num_workers=M, backend=backend, store_path=root)
+        for name in ("lineitem", "orders"):
+            io0 = sess.store.io_snapshot()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ds = sess.write(name, data[name], cands[name])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            io1 = sess.store.io_snapshot()
+            nb = io1["bytes_written"] - io0["bytes_written"]
+            ws = io1["write_s"] - io0["write_s"]
+            padded[name] = ds.padded_bytes
+            print(f"phase 9: {backend} columns: {name} write_s={wall:.4f}, "
+                  f"of which flush {nb} B in {ws:.4f} s "
+                  f"({nb / ws / 1e9:.2f} GB/s"
+                  f"{', D2H copy included' if backend == 'device' else ''})"
+                  f" on {card}", flush=True)
+        del sess, ds
+    torch.cuda.empty_cache()
+    files, nbytes = p9_compare_stores(roots["device"], roots["host"])
+    print(f"phase 9: device store == host store: {files} files, {nbytes} B "
+          "of segments sha256-equal, manifests equal apart from times",
+          flush=True)
+    hist_path = str(tmp / "history-device.jsonl")
+
+    cfg = {"a": roots["device"], "b": roots["host"], "history": hist_path,
+           "budget": padded["lineitem"] + padded["orders"] // 2,
+           "dataset_bytes": li_bytes,
+           "sigsets": {n: list(c.signature_set()) for n, c in cands.items()}}
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--phase9-child", json.dumps(cfg)],
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith('{"child"'):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"phase 9 child exited {proc.returncode}")
+    child = json.loads(next(x for x in lines if x.startswith('{"child"'))
+                       )["child"]
+    print(f"phase 9: child process done in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    # the parent reopens: generation 1 under partkey, the child's profiles
+    q17 = p9_q17(lt.Workload)
+    by_part = tcore.enumerate_candidates(q17.graph, "lineitem")[0]
+    again = lt.Session(store_path=roots["device"])
+    li = again.store.datasets["lineitem"]
+    if li.generation != 1 or li.partitioner.signature_set() != \
+            by_part.signature_set() or child["decision"] != \
+            by_part.signature():
+        raise AssertionError(f"reopened lineitem at gen {li.generation} "
+                             f"under {li.partitioner.signature_set()}")
+    if len(again.telemetry()) != child["profiles"]:
+        raise AssertionError("the child's telemetry did not survive")
+    host = lt.Session(backend="host", store_path=roots["host"])
+    t1 = time.perf_counter()
+    host.repartition("lineitem", by_part)
+    host_s = time.perf_counter() - t1
+    files, nbytes = p9_compare_stores(
+        roots["device"], roots["host"],
+        ("lineitem/gen-000001/", "lineitem/manifest-000001.json"))
+    print(f"phase 9: reopened in the parent: lineitem at generation 1 under "
+          f"partkey, {child['profiles']} run profile(s) kept; generation 1 "
+          f"sha256-equal to the host store's after the same repartition "
+          f"({files} files, {nbytes} B; host repartition+persist "
+          f"{host_s:.4f} s)", flush=True)
+    return child["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -960,11 +1413,11 @@ def main() -> int:
 
     hp.reset_launches()
     t3 = time.perf_counter()
-    run_tpch(torch, np, lt, tcore, TableVal)
+    tpch1 = run_tpch(torch, np, lt, tcore, TableVal)
     print(f"phase 3: done in {time.perf_counter() - t3:.1f} s; launches "
           f"{dict(hp.LAUNCHES)}", flush=True)
     t4 = time.perf_counter()
-    run_sf10(torch, np, lt, tcore, export_layout)
+    lineitem10 = run_sf10(torch, np, lt, tcore, export_layout)
     print(f"phase 4: done in {time.perf_counter() - t4:.1f} s", flush=True)
     launches = dict(hp.LAUNCHES)
     routes = dict(hp.SCATTER_ROUTES)
@@ -1004,6 +1457,19 @@ def main() -> int:
         print(f"phase {phase}: done in {time.perf_counter() - tp:.1f} s",
               flush=True)
 
+    hp.reset_launches()
+    t9 = time.perf_counter()
+    child = run_durable(torch, np, lt, tcore, lineitem10, tpch1)
+    del lineitem10, tpch1
+    phase9 = {k: v + child[k] for k, v in hp.LAUNCHES.items()}
+    for k in ("hash_partition", "scatter_perm"):
+        if phase9[k] == 0:
+            return fail(f"phase 9 never launched {k}")
+        launches[k] += phase9[k]
+    launches["hash_partition_padded"] += phase9["hash_partition_padded"]
+    print(f"phase 9: done in {time.perf_counter() - t9:.1f} s on {card}; "
+          f"launches (parent + child) {phase9}", flush=True)
+
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         return fail(f"kernels never launched on the main path: {missing}")
@@ -1020,7 +1486,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = p9_child(json.loads(sys.argv[2])) \
+            if sys.argv[1:2] == ["--phase9-child"] else main()
     except Exception as exc:            # report any phase's failure, exit 1
         import traceback
         traceback.print_exc()

@@ -20,11 +20,13 @@ One facade over the whole pipeline::
 The session runs on the card unless the caller asks for the CPU:
 ``device="cpu"`` keeps the device backend on CPU tensors (the kernels'
 plain versions), ``backend="host"`` runs the numpy path.  With no card
-present and neither asked for, construction raises ``RuntimeError``.
+present and neither asked for, construction raises ``RuntimeError`` — a
+durable session (``store_path=``) too.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -38,6 +40,7 @@ from .data.device_repartition import plan_cache_stats as _shuffle_plan_stats
 from .data.partition_store import PartitionStore, StoredDataset
 from .obs import metrics as _obs_metrics
 from .obs import tracer as _obs_tracer
+from .obs.telemetry import RunProfile
 
 __all__ = ["Session", "RunResult", "UnknownBackendError", "StalePlanError"]
 
@@ -46,7 +49,7 @@ RunStats = EngineStats   # the stats schema, under its API-facing name
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP Queue 1: "
+        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 "
         f"{item})")
 
 
@@ -85,26 +88,39 @@ class Session:
     def __init__(self, store: Optional[PartitionStore] = None, *,
                  num_workers: int = 8, backend: str = "device",
                  device="cuda", matching: bool = True,
-                 registry: Optional[BackendRegistry] = None,
+                 history=None, registry: Optional[BackendRegistry] = None,
                  plan_cache_capacity: int = 128,
                  store_path: Optional[str] = None,
                  memory_budget_bytes: Optional[int] = None,
+                 autoflush: bool = True,
                  adaptive_capacity: bool = False,
                  metrics: Optional["_obs_metrics.MetricsRegistry"] = None,
                  cluster=None):
         """``device`` is where a device-resident backend keeps its columns
         and runs its shuffles (default CUDA; ``"cpu"`` runs the kernels'
-        plain versions).  ``adaptive_capacity`` (DESIGN §12) lets the store
-        plan non-uniform per-partition capacities on skewed writes.
-        ``store_path``, ``memory_budget_bytes`` and ``cluster`` belong to
-        tiers not ported yet and raise ``NotImplementedError``."""
-        if store_path is not None or memory_budget_bytes is not None:
-            raise _not_ported("store_path=/memory_budget_bytes= (the durable "
-                              "tier)", "data/storage/")
+        plain versions).
+
+        ``store_path`` (DESIGN §10) backs the session's store with the
+        durable tier: an existing store directory — written by this
+        package or the JAX package — is reattached (its layouts,
+        partitioner signatures and generation numbers carry over, so this
+        session's plans elide the shuffles a previous application's
+        layouts paid for), a fresh directory is initialized.  Mutually
+        exclusive with passing a ``store`` object.  ``memory_budget_bytes``
+        spills the coldest datasets to their segments past the budget;
+        ``autoflush=False`` defers persistence to :meth:`flush`.
+
+        ``history`` (a :class:`~repro_torch.core.history.HistoryStore`)
+        logs an ExecutionRecord per run, the input of the advisor (Alg. 3).
+        ``adaptive_capacity`` (DESIGN §12) lets the store plan non-uniform
+        per-partition capacities on skewed writes.  ``cluster`` belongs to
+        a tier not ported yet and raises ``NotImplementedError``."""
         if cluster is not None:
-            raise _not_ported("cluster=", "cluster/")
+            raise _not_ported("cluster=", "item 4: cluster/")
         self.registry = registry or REGISTRY
         self._backend: Backend = self.registry.get(backend)
+        if store is not None and store_path is not None:
+            raise ValueError("pass either store= or store_path=, not both")
         if store is None:
             store = PartitionStore(num_workers=num_workers,
                                    backend=self._backend.name
@@ -112,7 +128,11 @@ class Session:
                                    else "host",
                                    device=device,
                                    registry=self.registry,
+                                   root=store_path,
+                                   memory_budget_bytes=memory_budget_bytes,
+                                   autoflush=autoflush,
                                    adaptive_capacity=adaptive_capacity)
+        self.history = history
         self.run_hooks: List[Callable[[Any, EngineStats], None]] = []
         self.metrics_registry = metrics or _obs_metrics.REGISTRY
         self.planner = Planner(store, registry=self.registry,
@@ -122,6 +142,9 @@ class Session:
         self.executor = Executor(store)
         self._current: Optional[Workload] = None
         self._wl_counter = 0
+        # last-seen ShufflePlan build counter, for per-run rebuild deltas
+        # in the telemetry RunProfile (lazy: first durable run initializes)
+        self._traces_seen: Optional[int] = None
         _register_process_collectors(self.metrics_registry)
         store.register_metrics(self.metrics_registry)
 
@@ -217,24 +240,65 @@ class Session:
 
     # -- execution -----------------------------------------------------------
     def run(self, workload: Optional[Workload] = None, *,
-            backend: Optional[str] = None) -> RunResult:
+            backend: Optional[str] = None, history=None,
+            timestamp: Optional[float] = None) -> RunResult:
         """Plan (or fetch the cached plan) and execute.
 
         Without ``workload``, runs the session's current implicit workload
         (built via the scan/join/... passthroughs) and clears it once the
-        run succeeds — a failed run keeps it so it can be retried."""
+        run succeeds — a failed run keeps it so it can be retried.
+        ``history`` (default: the session's) logs the run's
+        ExecutionRecord, stamped ``timestamp`` (default: now)."""
         wl = self._resolve_wl(workload)
+        history = self.history if history is None else history
         with _obs_tracer.span("session.run", "session",
                               workload=getattr(wl, "app_id", "?")) as sp:
             vals, stats, plan = plan_and_execute(
                 self.planner, self.executor, wl,
                 self._resolve_backend(backend),
-                hooks=tuple(self.run_hooks))
+                history=history, hooks=tuple(self.run_hooks),
+                timestamp=timestamp)
             sp.set(cache_hit=stats.plan_cache_hit,
                    wall_ms=round(stats.wall_s * 1e3, 3))
+        if self.store.telemetry is not None:
+            self._record_run_profile(wl, stats, plan)
         if workload is None and wl is self._current:
             self._current = None
         return RunResult(values=vals, stats=stats, plan=plan, workload=wl)
+
+    def _record_run_profile(self, wl: Workload, stats: EngineStats,
+                            plan: PhysicalPlan) -> None:
+        """Append one RunProfile to the store's durable telemetry
+        (DESIGN §15) — the (state, action, reward) record per run.
+        ``retraces`` counts the ShufflePlans this run built."""
+        traces = int(_shuffle_plan_stats().get("traces", 0))
+        prev = self._traces_seen
+        self._traces_seen = traces
+        key = getattr(plan, "key", None)
+        generations = {name: int(gen)
+                       for name, gen, _sig in getattr(key, "layout", ())}
+        profile = RunProfile(
+            t=time.time(), workload=getattr(wl, "app_id", ""),
+            process=_obs_tracer.TRACER.process,
+            wall_s=float(stats.wall_s), shuffle_s=float(stats.shuffle_s),
+            io_s=float(stats.storage_io_s),
+            planning_s=float(stats.planning_s),
+            plan_cache_hit=bool(stats.plan_cache_hit),
+            retraces=traces - prev if prev is not None else 0,
+            shuffles_performed=int(stats.shuffles_performed),
+            shuffles_elided=int(stats.shuffles_elided),
+            shuffle_bytes=int(stats.shuffle_bytes),
+            input_bytes=int(stats.input_bytes),
+            output_bytes=int(stats.output_bytes),
+            io_bytes=int(stats.storage_io_bytes),
+            padded_bytes=int(stats.padded_bytes),
+            valid_bytes=int(stats.valid_bytes),
+            placement_epoch=int(getattr(key, "placement_epoch", -1)),
+            generations=generations)
+        try:
+            self.store.telemetry.record_run(profile)
+        except OSError:          # telemetry is advisory — a full disk
+            pass                 # must never fail the run that produced it
 
     def add_run_hook(self, fn: Callable[[Any, EngineStats], None]) -> None:
         """Register ``fn(workload, stats)`` to fire after every run."""
@@ -273,15 +337,13 @@ class Session:
         return self.store.repartition(ds, partitioner, swap=swap)
 
     def flush(self, name: Optional[str] = None) -> int:
-        """Persist pending generations to the durable tier.  The store is
-        in memory only (``store_path=`` is not ported), so nothing is
-        published: 0, as the reference answers without ``store_path``."""
-        return 0
+        """Persist pending generations to the durable tier (no-op without
+        ``store_path``).  Returns the number of generations published."""
+        return self.store.flush(name)
 
     @property
     def store_path(self) -> Optional[str]:
-        """None: the store has no durable tier."""
-        return None
+        return self.store.root if self.store.is_durable else None
 
     # -- cluster passthrough -----------------------------------------------------
     @property
@@ -300,54 +362,80 @@ class Session:
         """The same snapshot in Prometheus text exposition format."""
         return self.metrics_registry.prometheus_text()
 
-    # The durable telemetry history lives under a store root; on the
-    # in-memory store these answer as the reference's do without
-    # ``store_path``.
-    def telemetry(self, limit: Optional[int] = None) -> List[Any]:
-        """Per-run records of the durable telemetry history: none."""
-        return []
+    def telemetry(self, limit: Optional[int] = None) -> List[RunProfile]:
+        """Per-run :class:`RunProfile` records from the store's durable
+        telemetry history (DESIGN §15), oldest first — these survive
+        process restarts because they live under the store root.  Empty
+        without ``store_path``."""
+        tele = self.store.telemetry
+        if tele is None:
+            return []
+        return tele.run_profiles(limit=limit)
 
     @property
     def telemetry_store(self):
-        return None
+        """The underlying TelemetryStore (None without ``store_path``)."""
+        return self.store.telemetry
 
     @property
     def watchdog(self):
-        return None
+        """The store's RegressionDetector (None without ``store_path``)."""
+        return self.store.watchdog
 
     def export_node_metrics(self, node: Optional[str] = None) -> Optional[str]:
-        """Where the node's metrics snapshot was written: nowhere."""
-        return None
+        """Snapshot this process's metrics registry to the store's
+        ``telemetry/metrics-<node>.json`` (default node label: the
+        tracer's process label) for the merged view.  Returns the path,
+        or None without a durable store."""
+        tele = self.store.telemetry
+        if tele is None:
+            return None
+        return tele.write_node_metrics(self.metrics_registry,
+                                       node or _obs_tracer.TRACER.process)
 
     def cluster_metrics(self) -> Dict[str, Any]:
-        """The merged snapshot over every node's exported metrics: empty."""
-        return {"version": _obs_metrics.METRICS_SCHEMA_VERSION,
-                "nodes": [], "metrics": {}}
+        """Merged metrics snapshot over every node's exported
+        ``metrics-*.json`` — one document, ``node`` label per sample
+        (empty without a durable store)."""
+        tele = self.store.telemetry
+        if tele is None:
+            return {"version": _obs_metrics.METRICS_SCHEMA_VERSION,
+                    "nodes": [], "metrics": {}}
+        return tele.cluster_metrics()
 
     def cluster_metrics_text(self) -> str:
         """The merged cluster view as Prometheus text exposition."""
         return _obs_metrics.snapshot_prometheus_text(self.cluster_metrics())
 
     def explain_decisions(self, limit: int = 50) -> List[Dict[str, Any]]:
-        """Why-records of attached autopilots' decisions: none, since
-        ``autopilot`` is not ported and there is no durable log."""
-        return []
+        """Structured why-records of past Autopilot decisions, read from
+        the durable ``decisions.log`` (kind=why rows) — a log the JAX
+        package's Autopilot may have written into the same store.  The
+        Autopilot itself is not ported (ROADMAP Queue 1 item 3), so no
+        in-memory records precede them; [] without ``store_path``."""
+        recs: List[Dict[str, Any]] = []
+        if self.store.is_durable:
+            for row in self.store.durable.decisions():
+                if row.get("kind") == "why":
+                    # ticks batch their records into one JSONL row
+                    recs.extend(row.get("records") or [])
+        return recs[-limit:]
 
     # -- not ported yet --------------------------------------------------------
     def export_trace(self, path: Optional[str] = None):
-        raise _not_ported("export_trace", "obs/export.py")
+        raise _not_ported("export_trace", "item 4: obs/export.py")
 
     def plan_rebalance(self, **kw):
-        raise _not_ported("plan_rebalance", "cluster/")
+        raise _not_ported("plan_rebalance", "item 4: cluster/")
 
     def rebalance(self, plan=None, **kw):
-        raise _not_ported("rebalance", "cluster/")
+        raise _not_ported("rebalance", "item 4: cluster/")
 
     def autopilot(self, **kw):
-        raise _not_ported("autopilot", "service/")
+        raise _not_ported("autopilot", "item 3: service/")
 
     def serve(self, **kw):
-        raise _not_ported("serve", "service/")
+        raise _not_ported("serve", "item 3: service/")
 
     # -- internals ---------------------------------------------------------------
     def _resolve_wl(self, workload: Optional[Workload]) -> Workload:

@@ -73,6 +73,10 @@ class Backend:
     kernel_shuffle: bool = False
     #: scans relay flat device columns downstream (d2d chain, DESIGN §5)
     device_relay: bool = False
+    #: reading a spilled dataset from a durable store promotes it
+    #: host→device (DESIGN §10 eviction loop); host backends read straight
+    #: through the lazy memmap views instead
+    storage_prefetch: bool = False
     description: str = ""
 
     def partition_op(self, strategy: str, device: torch.device) -> str:
@@ -134,6 +138,7 @@ REGISTRY.register(Backend(
     description="numpy columnar execution; shuffles via stable argsort"))
 REGISTRY.register(Backend(
     "device", device_resident=True, kernel_shuffle=True, device_relay=True,
+    storage_prefetch=True,
     description="device-resident columns; hash shuffles via cached "
                 "single-pass ShufflePlans (CUDA kernels on the card)"))
 

@@ -9,9 +9,9 @@ in the reference; key projections and the device re-bucket use torch.
 
 The per-candidate measurement pass (selectivity / distinct keys at every
 partition node — an ``np.unique`` over the key column) is **gated** behind
-observation: it only runs when at least one run hook is attached, and
-``EngineStats.candidate_measure_passes`` counts it so tests can assert the
-skip.
+observation: it only runs when a history or at least one run hook is
+attached, and ``EngineStats.candidate_measure_passes`` counts it so tests
+can assert the skip.
 """
 
 from __future__ import annotations
@@ -93,8 +93,9 @@ class EngineStats:
     planning_s: float = 0.0          # plan/compile wall for this run (0 on hit)
     plan_cache_hit: Optional[bool] = None   # None when run outside a Session
     candidate_measure_passes: int = 0       # measurement-pass executions
-    # durable-tier I/O this run caused (DESIGN §10); zeros until the
-    # durable tier is ported (the schema is the reference's)
+    # durable-tier I/O this run caused (DESIGN §10): segment bytes written
+    # (autoflushed generations) + read (spill rehydration), and the wall
+    # spent on them; zeros on a memory-only store
     storage_io_bytes: int = 0
     storage_io_s: float = 0.0
     storage_rehydrations: int = 0
@@ -104,9 +105,13 @@ class EngineStats:
     # the cost model's padding term.
     padded_bytes: int = 0
     valid_bytes: int = 0
+    # the HistoryStore this run's executor appended its record to (None if
+    # unobserved) — lets an observer hook skip a duplicate append when it
+    # shares that exact store
+    history_logged: Optional[Any] = field(default=None, repr=False)
     # per-candidate runtime stats for this run (ExecutionRecord schema),
     # keyed by candidate signature; None unless the run is being observed
-    # (run hooks attached) — the np.unique pass isn't free.
+    # (history / run hooks attached) — the np.unique pass isn't free.
     candidate_stats: Optional[Dict[str, Dict[str, float]]] = None
 
     def modeled_network_s(self, bandwidth: float = 1.25e9) -> float:
@@ -123,34 +128,36 @@ class Executor:
         self.store = store
 
     # ------------------------------------------------------------- execute --
-    def execute(self, plan, *, hooks: Tuple[Callable, ...] = (),
-                workload=None, planning_s: float = 0.0,
-                cache_hit: Optional[bool] = None
+    def execute(self, plan, *, history=None, hooks: Tuple[Callable, ...] = (),
+                timestamp: Optional[float] = None, workload=None,
+                planning_s: float = 0.0, cache_hit: Optional[bool] = None
                 ) -> Tuple[Dict[int, Any], "EngineStats"]:
         """Run ``plan``; returns ``(node values, stats)``.
 
-        ``hooks`` turn on the observation pass (per-candidate stats at
-        partition nodes) and receive the finished stats.  ``workload``
-        defaults to the plan's own workload (it is only user-visible
-        through hooks).  ``planning_s`` /
+        ``history`` / ``hooks`` turn on the observation pass (per-candidate
+        stats at partition nodes) and receive the finished record/stats.
+        ``workload`` defaults to the plan's own workload (it is only
+        user-visible through hooks and history records).  ``planning_s`` /
         ``cache_hit`` carry the caller's planning cost into the stats so
         hooks observe them."""
         with _span("exec.run", "exec", workload=plan.workload_id,
                    cache_hit=cache_hit) as rsp:
             vals, stats = self._execute(
-                plan, hooks=hooks, workload=workload, planning_s=planning_s,
+                plan, history=history, hooks=hooks, timestamp=timestamp,
+                workload=workload, planning_s=planning_s,
                 cache_hit=cache_hit)
             rsp.set(wall_ms=round(stats.wall_s * 1e3, 3),
                     shuffles=stats.shuffles_performed,
                     elided=stats.shuffles_elided)
             return vals, stats
 
-    def _execute(self, plan, *, hooks, workload, planning_s,
-                 cache_hit) -> Tuple[Dict[int, Any], "EngineStats"]:
+    def _execute(self, plan, *, history, hooks, timestamp, workload,
+                 planning_s, cache_hit) -> Tuple[Dict[int, Any],
+                                                 "EngineStats"]:
         workload = workload if workload is not None else plan.workload
         g = plan.graph
         stats = EngineStats()
-        if hooks:
+        if history is not None or hooks:
             stats.candidate_stats = {}
         stats.planning_s = planning_s
         stats.plan_cache_hit = cache_hit
@@ -181,6 +188,7 @@ class Executor:
                 scans[step.nid] = ds
             else:
                 scans[step.nid] = self.store.read(step.dataset)
+        io0 = self.store.io_snapshot()
         t_start = time.perf_counter()
         vals: Dict[int, Any] = {}
 
@@ -252,6 +260,26 @@ class Executor:
                 (time.perf_counter() - t0)
 
         stats.wall_s = time.perf_counter() - t_start
+        if io0:
+            io1 = self.store.io_snapshot()
+            stats.storage_io_bytes = int(
+                io1["bytes_written"] - io0["bytes_written"]
+                + io1["bytes_read"] - io0["bytes_read"])
+            stats.storage_io_s = float(io1["write_s"] - io0["write_s"]
+                                       + io1["read_s"] - io0["read_s"])
+            stats.storage_rehydrations = int(io1["rehydrations"]
+                                             - io0["rehydrations"])
+        if history is not None:
+            stats.history_logged = history
+            history.log_workload(
+                workload,
+                timestamp=time.time() if timestamp is None else timestamp,
+                latency=stats.wall_s,
+                input_bytes=float(stats.input_bytes),
+                output_bytes=float(stats.output_bytes),
+                padded_bytes=float(stats.padded_bytes),
+                valid_bytes=float(stats.valid_bytes),
+                candidate_stats=stats.candidate_stats or {})
         for hook in hooks:
             hook(workload, stats)
         return vals, stats
@@ -268,8 +296,9 @@ class Executor:
         key_vals = to_numpy(vals[step.key_node]).reshape(-1)
 
         # observation (DESIGN §8): per-candidate runtime stats measured at
-        # this node feed the run hooks.  Gated: without a run hook the
-        # np.unique pass is skipped entirely.
+        # this node feed the auto-logged ExecutionRecord and the run hooks.
+        # Gated: without a history or run hook the np.unique pass is
+        # skipped entirely.
         if stats.candidate_stats is not None and step.candidate is not None:
             stats.candidate_measure_passes += 1
             _record_candidate_stats(stats.candidate_stats,
@@ -419,9 +448,10 @@ class Executor:
 
 
 def plan_and_execute(planner, executor: Executor, workload, backend, *,
-                     hooks: Tuple[Callable, ...] = (),
+                     history=None, hooks: Tuple[Callable, ...] = (),
+                     timestamp: Optional[float] = None,
                      max_replans: int = 4):
-    """The run path behind ``Session.run``:
+    """The shared run path behind ``Session.run`` and the Engine shim:
     plan (cached) + execute, transparently re-planning when a concurrent
     layout swap (e.g. a background Autopilot repartition) lands between
     the cache lookup and the executor's up-front generation check.
@@ -441,8 +471,8 @@ def plan_and_execute(planner, executor: Executor, workload, backend, *,
             plan, hit = planner.physical(workload, backend)
             planning_s = time.perf_counter() - t0
             vals, stats = executor.execute(
-                plan, hooks=hooks, workload=workload, planning_s=planning_s,
-                cache_hit=hit)
+                plan, history=history, hooks=hooks, timestamp=timestamp,
+                workload=workload, planning_s=planning_s, cache_hit=hit)
             return vals, stats, plan
         except (StalePlanError, RetiredGenerationError):
             # the store moved under us; the next physical() re-keys
@@ -459,16 +489,18 @@ def _record_candidate_stats(out: Dict[str, Dict[str, float]], sig: str,
     min distinct keys — so per-run stats compose like per-group ones."""
     object_bytes = float(table.nbytes())
     key_bytes = float(key_vals.nbytes)
-    # heavy-hitter sketch over the key column (DESIGN §12): a lower bound
-    # on the hottest key's share, riding the same observation pass — the
-    # Autopilot's salt trigger.  Merge-by-max below is correct for it.
+    # one sort of the key column serves the distinct count and the
+    # heavy-hitter sketch (DESIGN §12): a lower bound on the hottest key's
+    # share, riding the same observation pass — the Autopilot's salt
+    # trigger.  Merge-by-max below is correct for it.
+    vals, cnts = np.unique(key_vals, return_counts=True)
     st = {
         "selectivity": key_bytes / object_bytes if object_bytes else 0.0,
-        "distinct_keys": float(np.unique(key_vals).size),
+        "distinct_keys": float(vals.size),
         "num_objects": float(table.num_rows),
         "key_bytes": key_bytes,
         "object_bytes": object_bytes,
-        "max_key_fraction": HeavyHitterSketch(k=8).update(key_vals)
+        "max_key_fraction": HeavyHitterSketch(k=8).update_unique(vals, cnts)
         .max_fraction(),
     }
     cur = out.get(sig)

@@ -205,7 +205,24 @@ class SaltedPartitioner(PartitionerCandidate):
                         base).astype(np.int32)
 
 
+def keyless_candidates() -> List[PartitionerCandidate]:
+    """Round-robin and random are always in the action space (§3.1.3)."""
+    return [PartitionerCandidate(graph=None, strategy=ROUND_ROBIN),
+            PartitionerCandidate(graph=None, strategy=RANDOM)]
+
+
 def _num_objects(data: Any) -> int:
     if isinstance(data, dict):
         data = next(iter(data.values()))
     return int(data.shape[0]) if hasattr(data, "shape") else len(data)
+
+
+# ---------------------------------------------------------------------------
+# Deduplication across consuming workloads (advisor-level)
+# ---------------------------------------------------------------------------
+
+def dedupe(cands: Sequence[PartitionerCandidate]) -> List[PartitionerCandidate]:
+    seen: Dict[str, PartitionerCandidate] = {}
+    for c in cands:
+        seen.setdefault(c.signature(), c)
+    return list(seen.values())

@@ -16,9 +16,18 @@ counting-sort → packed scatter) and repartitioning device-to-device;
 ``backend="host"`` dispatches with numpy (one vectorized counting-sort
 placement per write).
 
-Only the in-memory store is ported so far: the durable tier (``root=``,
-``memory_budget_bytes=``) and the cluster tier (``cluster=``) raise
-``NotImplementedError``.
+Durability (DESIGN §10): pass ``root=`` to back the store with the
+:mod:`~repro_torch.data.storage` tier — every published generation is
+written as per-column segment files (already in the padded layout, so
+reopening is a zero-copy ``np.memmap``) under a crash-safe manifest, in the
+JAX package's on-disk format; a fresh process reattaches with
+:meth:`PartitionStore.open` (or ``lachesis_torch.Session(store_path=...)``)
+and consumers elide their shuffles against layouts a previous application
+paid for.  ``memory_budget_bytes`` turns on the eviction loop: cold
+datasets spill to their segments (a device column's memory is freed), reads
+lazily rehydrate, and a device-resident store prefetches host→device on
+read.  The cluster tier (``cluster=``, or a root holding ``cluster.json``)
+raises ``NotImplementedError``.
 
 :func:`import_layout` and :func:`export_layout` carry a stored layout across
 as numpy arrays (the port's counterpart of carried weights: this system's
@@ -27,10 +36,12 @@ state is its stored layout).
 
 from __future__ import annotations
 
+import itertools
+import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,11 +63,13 @@ Columns = Dict[str, Any]
 #: monotone ``write_totals`` aggregates
 DEFAULT_WRITE_LOG_CAP = 256
 
-#: where the tiers this store does not have yet are planned
-_DURABLE_ITEM = ("the durable tier is not ported yet (ROADMAP Queue 1: "
-                 "data/storage/)")
-_CLUSTER_ITEM = ("the cluster tier is not ported yet (ROADMAP Queue 1: "
-                 "service/, obs/, cluster/, runtime/)")
+#: where the tier this store does not have yet is planned
+_CLUSTER_ITEM = ("the cluster tier is not ported yet (ROADMAP Queue 1 "
+                 "item 4: cluster/, runtime/)")
+
+
+def _numel(v) -> int:
+    return v.numel() if isinstance(v, torch.Tensor) else int(v.size)
 
 
 class RetiredGenerationError(KeyError):
@@ -154,15 +167,27 @@ class StoredDataset:
 
     @property
     def backend(self) -> str:
-        """"device" when any column is a torch tensor."""
+        """"device" when any column is a torch tensor (a spilled device
+        dataset reads "host" until a read prefetches it)."""
         return "device" if any(isinstance(v, torch.Tensor)
                                for v in self.columns.values()) else "host"
+
+    @property
+    def spilled(self) -> bool:
+        """True when every column is a disk-backed memmap view (the
+        eviction loop's cold state — reads page in lazily).  Zero-size
+        columns hold no memory and cannot be memmapped, so they don't
+        count against the cold state."""
+        cols = [v for v in self.columns.values() if _numel(v)]
+        return bool(self.columns) and all(isinstance(v, np.memmap)
+                                          for v in cols)
 
     def gather(self) -> Columns:
         """Materialize back to flat numpy rows, worker-major in rank order
         (:func:`~repro_torch.data.capacity.valid_slot_index`) — the same
         order for uniform and bucketed layouts.  Tensor columns are indexed
-        on their device and copied to the host once."""
+        on their device and copied to the host once; memmap columns (a
+        spilled, or half-spilled, dataset) are read through their pages."""
         idx = valid_slot_index(np.asarray(self.counts), self.slot_offsets())
         idx_dev: Dict[torch.device, torch.Tensor] = {}
         out: Columns = {}
@@ -248,15 +273,19 @@ class PartitionStore:
                  registry=None,
                  root: Optional[str] = None,
                  memory_budget_bytes: Optional[int] = None,
+                 autoflush: bool = True,
                  write_log_cap: int = DEFAULT_WRITE_LOG_CAP,
                  adaptive_capacity: bool = False,
                  capacity_threshold: float = 0.75,
                  cluster=None):
-        if root is not None or memory_budget_bytes is not None:
-            raise NotImplementedError(
-                f"root=/memory_budget_bytes=: {_DURABLE_ITEM}")
         if cluster is not None:
             raise NotImplementedError(f"cluster=: {_CLUSTER_ITEM}")
+        if root is not None and os.path.exists(os.path.join(root,
+                                                            "cluster.json")):
+            # never open a cluster root as a single node: its columns live
+            # in per-node parts this store cannot read
+            raise NotImplementedError(
+                f"{root} holds a cluster store: {_CLUSTER_ITEM}")
         # UnknownBackendError on typos; `registry` (default: the global
         # one) lets a Session thread its own registry through, so custom
         # backends registered there resolve here too
@@ -265,6 +294,7 @@ class PartitionStore:
         # capability, not name: a registered custom backend with
         # device_resident=True gets device-resident columns too
         self._device_resident = b.device_resident
+        self._storage_prefetch = b.storage_prefetch
         # a host store never touches a device; a device store raises here
         # when its device is CUDA and no card is present
         self.device = resolve_device(device) if b.device_resident \
@@ -290,12 +320,68 @@ class PartitionStore:
         self._retired: Dict[str, List[StoredDataset]] = {}
         # Concurrency contract (DESIGN §11): the name→StoredDataset pointer
         # flip is one dict assignment, so READS ARE LOCK-FREE.
-        # ``_swap_lock`` is the writer side: it serializes pointer flips and
-        # retired-list maintenance, while readers never wait.
+        # ``_swap_lock`` is the writer side: it serializes pointer flips,
+        # retired-list maintenance and container swaps (spill/prefetch), while
+        # readers never wait.
         self._swap_lock = threading.Lock()
         self._install_locks: Dict[str, threading.Lock] = {}
         self._log_lock = threading.Lock()
+        self._evict_lock = threading.Lock()
+        # injectable sync points (set_sync_point): named callables invoked
+        # at the store's sharp edges.  Empty unless a test or a measurement
+        # sets one.
+        self._sync_points: Dict[str, Callable[[], None]] = {}
+        # durable tier (DESIGN §10)
+        self.autoflush = autoflush
+        self.memory_budget_bytes = memory_budget_bytes
+        self._dirty: set = set()
+        self._last_access: Dict[str, int] = {}
+        self._access_clock = itertools.count(1)
+        self.durable = None
+        # durable-only observability (DESIGN §15): per-run telemetry
+        # history and the regression watchdog reading it
+        self.telemetry = None
+        self.watchdog = None
+        if root is not None:
+            from ..obs.telemetry import TelemetryStore
+            from ..obs.watchdog import RegressionDetector
+            from .storage.durable import DurableStore
+            self.durable = DurableStore(
+                root, num_workers=num_workers,
+                max_retired_generations=max_retired_generations)
+            # an existing catalog is authoritative for the worker count —
+            # segment layouts are (m, capacity) and cannot be re-bucketed
+            # on open without a shuffle
+            if self.durable.num_workers is not None:
+                num_workers = self.durable.num_workers
+            # telemetry and baselines live under the same root, so they
+            # survive restarts with the data they describe
+            self.telemetry = TelemetryStore(root)
+            self.watchdog = RegressionDetector(self.telemetry)
+            self._attach()
         self.m = num_workers
+
+    @classmethod
+    def open(cls, root: str, **kwargs) -> "PartitionStore":
+        """Reattach to a durable store directory written by a previous
+        process (either package's).  Worker count and dataset layouts come
+        from the on-disk catalog; ``backend=``, ``device=`` etc. are this
+        process's choices."""
+        return cls(root=root, **kwargs)
+
+    @property
+    def is_durable(self) -> bool:
+        return self.durable is not None
+
+    @property
+    def root(self) -> Optional[str]:
+        return self.durable.root if self.durable is not None else None
+
+    def _attach(self) -> None:
+        """Load every dataset's newest consistent generation as memmap
+        views (zero-copy; nothing is paged in until first touch)."""
+        for name, ds in self.durable.load_all().items():
+            self.datasets[name] = ds
 
     def _log_write(self, entry: Dict[str, Any]) -> None:
         """Append a write_log row, folding overflow into the monotone
@@ -334,12 +420,48 @@ class PartitionStore:
             return
         regs.add(marker)
         registry.register_callback(self, PartitionStore._metric_samples)
+        # the watchdog's coalesce-rate series reads serving counters out
+        # of whichever registry the session exports through
+        if self.watchdog is not None and self.watchdog.registry is None:
+            self.watchdog.registry = registry
 
     def _metric_samples(self):
         for k, v in self.write_stats().items():
             yield f"store_write_{k}", {}, float(v)
+        for k, v in self.io_snapshot().items():
+            yield f"store_io_{k}", {}, float(v)
         yield "store_datasets", {}, float(len(self.datasets))
         yield "store_resident_bytes", {}, float(self.resident_bytes())
+        if self.telemetry is not None:
+            st = self.telemetry.stats()
+            yield "telemetry_records", {}, float(st["records"])
+            yield "telemetry_appends_total", {}, float(st["appends"])
+            yield "telemetry_compactions_total", {}, float(st["compactions"])
+        if self.watchdog is not None:
+            yield ("watchdog_perf_regressions_total", {},
+                   float(self.watchdog.raised_total))
+            yield "watchdog_checks_total", {}, float(self.watchdog.checks)
+
+    # -- sync points: race tests and measurement (DESIGN §11) ---------------
+    def set_sync_point(self, point: str,
+                       fn: Optional[Callable[[], None]]) -> None:
+        """Install (or with ``None`` remove) a callable invoked when store
+        internals cross ``point`` — ``install:pre_flip``,
+        ``install:post_flip``, ``spill:column``, ``spill:post_swap``,
+        ``prefetch:pre_swap`` — so concurrency tests reproduce
+        interleavings deterministically with :class:`threading.Event`
+        barriers instead of sleeps, and a measurement can read the clock
+        and device memory at the exact edges of a spill
+        (``chip_smoke.py`` phase 9).  Serving stores never set these."""
+        if fn is None:
+            self._sync_points.pop(point, None)
+        else:
+            self._sync_points[point] = fn
+
+    def _sync(self, point: str) -> None:
+        fn = self._sync_points.get(point)
+        if fn is not None:
+            fn()
 
     def _name_lock(self, name: str) -> threading.Lock:
         with self._swap_lock:
@@ -350,12 +472,24 @@ class PartitionStore:
 
         The flip is a single dict assignment under the (global) swap lock;
         readers that already hold the previous StoredDataset keep reading
-        it unchanged (generations are immutable)."""
+        it unchanged (generations are immutable).  On a durable store with
+        autoflush the generation is persisted (segments → manifest →
+        CURRENT) *before* the in-memory flip, so the disk pointer never
+        runs ahead of a generation that fully exists.  The fsync-bound
+        persist runs under a per-NAME lock only, so a slow repartition of
+        one dataset never blocks writers of another."""
         with _span("store.install", "store", dataset=name) as sp:
             with self._name_lock(name):
                 prev = self.datasets.get(name)
                 if prev is not None:
                     ds.generation = prev.generation + 1
+                if self.durable is not None:
+                    if self.autoflush:
+                        self.durable.persist(ds)
+                        self._dirty.discard(name)
+                    else:
+                        self._dirty.add(name)
+                self._sync("install:pre_flip")
                 with self._swap_lock:
                     if prev is not None:
                         retired = self._retired.setdefault(name, [])
@@ -364,17 +498,197 @@ class PartitionStore:
                             del retired[:len(retired)
                                         - self.max_retired_generations]
                     self.datasets[name] = ds
+                self._sync("install:post_flip")
             sp.set(generation=ds.generation)
+        self._touch(name)
+        self._maybe_evict()
         return ds
 
+    def generation_of(self, name: str) -> int:
+        return self.datasets[name].generation
+
+    # -- durability (DESIGN §10) ---------------------------------------------
+    def flush(self, name: Optional[str] = None) -> int:
+        """Persist pending generations to the durable tier (all datasets,
+        or just ``name``).  Returns the number of generations published.
+        No-op (0) on a memory-only store."""
+        if self.durable is None:
+            return 0
+        names = [name] if name is not None else sorted(list(self.datasets))
+        published = 0
+        for n in names:
+            ds = self.datasets.get(n)
+            if ds is None:
+                continue
+            if n in self._dirty or not self.durable.has_generation(
+                    n, ds.generation):
+                self.durable.persist(ds)
+                self._dirty.discard(n)
+                published += 1
+        return published
+
+    def io_snapshot(self) -> Dict[str, float]:
+        """Copy of the durable tier's I/O counters (empty when memory-only).
+        The executor diffs this around a run to attribute storage I/O."""
+        if self.durable is None:
+            return {}
+        return self.durable.io_snapshot()
+
+    # -- eviction loop ---------------------------------------------------------
+    def _touch(self, name: str) -> None:
+        # itertools.count is a single C-level op — atomic under the GIL, so
+        # concurrent readers never lose a tick (LRU stays consistent)
+        self._last_access[name] = next(self._access_clock)
+
     def resident_bytes(self) -> int:
-        """Bytes of column data held in host or device memory, retired-but-
-        retained generations included."""
+        """Bytes of column data held in host or device memory (spilled
+        memmap views count as 0 — they are disk-backed).  Retired-but-
+        retained generations count too: they hold real memory until their
+        retention window closes."""
         with self._swap_lock:
+            # snapshot under the writer lock: a concurrent install/retire
+            # must not resize these containers mid-iteration
             live = list(self.datasets.values())
             retired = [d for lst in self._retired.values() for d in lst]
         return int(sum(int(v.nbytes) for ds in live + retired
-                       for v in list(ds.columns.values())))
+                       for v in list(ds.columns.values())
+                       if not isinstance(v, np.memmap)))
+
+    def is_spilled(self, name: str) -> bool:
+        return self.datasets[name].spilled
+
+    def spill(self, name: str) -> bool:
+        """Evict ``name``'s current generation to its segment files: columns
+        become read-only memmap views (bit-identical by construction) and
+        the store drops its references to the host arrays or device
+        tensors, so their memory is freed once no reader holds them.
+        Persists first if the generation isn't durable yet.  Returns False
+        on a memory-only store."""
+        if self.durable is None:
+            return False
+        # the per-name lock serializes spill against a concurrent _install
+        # of the same dataset (the generation sequence stays linear); other
+        # datasets' writers are unaffected
+        with _span("store.spill", "store", dataset=name) as sp:
+            with self._name_lock(name):
+                ds = self.datasets[name]
+                if ds.spilled:
+                    return True
+                self.flush(name)
+                man = self.durable.load_manifest(name, ds.generation)
+                if man is None:          # validation failed — keep resident
+                    sp.set(ok=False)
+                    return False
+                sp.set(generation=ds.generation)
+                return self._swap_to_segments(ds, man)
+
+    def _swap_to_segments(self, ds: StoredDataset, man) -> bool:
+        """Replace ``ds``'s column containers with memmap views of their
+        persisted segments (same bits, shared by every reader).
+
+        Each column flips under the writer lock individually; a reader
+        mid-``gather()`` may observe some columns resident and some as
+        memmap views — bit-identical by construction (the ``spill:column``
+        sync point lets the race tests freeze exactly that mixed state)."""
+        freed = sum(int(v.nbytes) for v in list(ds.columns.values())
+                    if not isinstance(v, np.memmap))
+        cols = self.durable.open_columns(ds.name, man)
+        for k in list(ds.columns):
+            self._sync("spill:column")
+            with self._swap_lock:
+                ds.columns[k] = cols[k]
+        self._sync("spill:post_swap")
+        self.durable.io_add(spills=1, spilled_bytes=freed)
+        return True
+
+    def _spill_retired(self) -> int:
+        """Evict retired-but-retained generations first: they hold real
+        memory, are never read on the hot path, and the durable tier
+        retains the same generation window on disk."""
+        spilled = 0
+        for name, lst in self._retired.items():
+            for old in lst:
+                if old.spilled:
+                    continue
+                if not self.durable.has_generation(name, old.generation):
+                    # segments + manifest only: CURRENT must never move
+                    # backwards to a superseded generation
+                    self.durable.persist(old, publish_current=False)
+                man = self.durable.load_manifest(name, old.generation)
+                if man is not None and self._swap_to_segments(old, man):
+                    spilled += 1
+        return spilled
+
+    def prefetch(self, name: str) -> bool:
+        """Promote a spilled dataset back to residency: in-RAM copies on a
+        host store, tensors on the store's device (host→device prefetch)
+        on a device-resident one.  Every column goes to the device — torch
+        holds int64 and float64 there, where the JAX package keeps them on
+        the host.  Returns True when the dataset is resident; a failed
+        read or copy raises."""
+        with _span("store.prefetch", "store", dataset=name) as psp:
+            with self._name_lock(name):
+                ds = self.datasets[name]
+                if not ds.spilled:
+                    return True
+                t0 = time.perf_counter()
+                loaded = 0
+                promoted: Columns = {}
+                for k, v in list(ds.columns.items()):
+                    arr = np.array(v)    # one sequential segment read
+                    loaded += int(arr.nbytes)
+                    promoted[k] = torch.from_numpy(arr).to(self.device) \
+                        if self._storage_prefetch else arr
+                if self._storage_prefetch and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                read_s = time.perf_counter() - t0
+                self._sync("prefetch:pre_swap")
+                with self._swap_lock:
+                    for k in list(ds.columns):
+                        ds.columns[k] = promoted[k]
+                if self.durable is not None:
+                    self.durable.io_add(bytes_read=loaded, read_s=read_s,
+                                        rehydrations=1,
+                                        rehydrated_bytes=loaded)
+                psp.set(bytes=loaded)
+        self._touch(name)
+        self._maybe_evict(exclude=name)
+        return True
+
+    def _maybe_evict(self, exclude: Optional[str] = None) -> int:
+        """Enforce ``memory_budget_bytes``: spill coldest-first (LRU by
+        last read/install) until resident bytes fit.  Requires the durable
+        tier; a memory-only store never spills."""
+        if self.memory_budget_bytes is None or self.durable is None:
+            return 0
+        # one evictor at a time: concurrent budget-crossers skip instead of
+        # queueing up to spill the same victims (the holder restores the
+        # invariant for everyone)
+        if not self._evict_lock.acquire(blocking=False):
+            return 0
+        try:
+            spilled = 0
+            if self.resident_bytes() > self.memory_budget_bytes:
+                spilled += self._spill_retired()
+            while self.resident_bytes() > self.memory_budget_bytes:
+                before = self.resident_bytes()
+                with self._swap_lock:
+                    candidates = [(n, d.spilled)
+                                  for n, d in self.datasets.items()]
+                victims = sorted(
+                    (n for n, is_spilled in candidates
+                     if not is_spilled and n != exclude),
+                    key=lambda n: self._last_access.get(n, 0))
+                if not victims:
+                    break
+                if not self.spill(victims[0]):
+                    break
+                spilled += 1
+                if self.resident_bytes() >= before:
+                    break                # no progress (e.g. 0-size columns)
+            return spilled
+        finally:
+            self._evict_lock.release()
 
     # -- write path (storage-time partitioning) ------------------------------
     def write(self, name: str, data: Columns,
@@ -552,17 +866,32 @@ class PartitionStore:
         """Current generation of ``name``; pass ``generation`` to resolve a
         specific (possibly superseded, still-retained) one.
 
+        On a device-resident durable store, reading a spilled dataset
+        prefetches it host→device first (DESIGN §10), so a reopened device
+        store repartitions device to device; a host store reads straight
+        through the memmap views (lazy page-in).
+
         Thread-safety (DESIGN §11): the current-generation hot path is
         LOCK-FREE — one dict lookup resolves an immutable StoredDataset.
         Only the retired-generation fallback briefly takes the writer lock
         to snapshot the retention list."""
         ds = self.datasets[name]
         if generation is None or ds.generation == generation:
+            self._touch(name)
+            if self._storage_prefetch and ds.spilled:
+                self.prefetch(name)
+                return self.datasets.get(name, ds)
             return ds
         with self._swap_lock:
             retained = list(self._retired.get(name, ()))
         for old in reversed(retained):
             if old.generation == generation:
+                return old
+        if self.durable is not None:
+            # a fresh process retains no in-memory retired generations, but
+            # the durable tier keeps the same retention window on disk
+            old = self.durable.load(name, generation)
+            if old is not None:
                 return old
         raise RetiredGenerationError(
             f"{name}@gen{generation} not found "

@@ -9,6 +9,8 @@ it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -236,6 +238,75 @@ def test_cuda_session_matches_host(cuda, partitioned):
     assert tk.LAUNCHES["hash_partition"] > 0
     if not partitioned:
         assert tk.LAUNCHES["hash_partition_padded"] > 0
+
+
+# -- the durable store on the card -----------------------------------------------
+
+def _segment_bytes(root):
+    out = {}
+    base = os.path.join(root, "datasets")
+    for dirpath, _dirs, files in os.walk(base):
+        for f in files:
+            if f.endswith(".seg"):
+                with open(os.path.join(dirpath, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(dirpath, f), base)] = \
+                        fh.read()
+    return out
+
+
+def test_cuda_durable_write_reopens_bit_equal_to_host(cuda, tmp_path):
+    """A device store's segments equal the host store's byte for byte, and
+    a reopened device store prefetches them back to the card on read."""
+    tables = _reddit()
+    wl = tcore.author_integrator()
+    cand = tcore.enumerate_candidates(wl.graph, "submissions")[0]
+    roots = {b: str(tmp_path / b) for b in ("device", "host")}
+    for backend, root in roots.items():
+        sess = lachesis_torch.Session(num_workers=16, backend=backend,
+                                      store_path=root)
+        sess.write("submissions", tables["submissions"], cand)
+        sess.write("authors", tables["authors"])
+    dev, host = _segment_bytes(roots["device"]), _segment_bytes(roots["host"])
+    assert sorted(dev) == sorted(host) and dev
+    for rel in host:
+        assert dev[rel] == host[rel], rel
+    again = lachesis_torch.Session(backend="device", store_path=roots["device"])
+    assert again.store.datasets["submissions"].spilled
+    got = again.read("submissions")
+    assert all(isinstance(v, torch.Tensor) and v.device.type == "cuda"
+               for v in got.columns.values())
+    ref = lachesis_torch.Session(backend="host", store_path=roots["host"])
+    want = ref.read("submissions").gather()
+    for k, v in got.gather().items():
+        np.testing.assert_array_equal(v, want[k])
+    res = again.run(wl)
+    assert res.stats.shuffles_elided == 1
+
+
+def test_cuda_spill_frees_memory_and_prefetch_returns_cuda(cuda, tmp_path):
+    root = str(tmp_path / "store")
+    rng = np.random.default_rng(3)
+    data = {"k": rng.integers(0, 1 << 20, 1 << 20),
+            "v": rng.normal(size=1 << 20).astype(np.float32)}
+    wl = tcore.Workload("w")
+    wl.partition(wl.scan("d")["k"])
+    cand = tcore.enumerate_candidates(wl.graph, "d")[0]
+    sess = lachesis_torch.Session(num_workers=32, store_path=root)
+    ds = sess.write("d", data, cand)
+    before = {k: v.clone() for k, v in ds.columns.items()}
+    padded = ds.padded_bytes
+    del ds
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    assert sess.store.spill("d")
+    assert held - torch.cuda.memory_allocated() >= padded
+    assert sess.store.resident_bytes() == 0
+    got = sess.read("d")                     # prefetch host→device
+    assert not got.spilled
+    for k, v in got.columns.items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v, before[k])
+    assert sess.store.io_snapshot()["rehydrations"] == 1
 
 
 # -- LM serving path: flash attention and the chunked SSD scan ------------------

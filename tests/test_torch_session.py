@@ -384,11 +384,76 @@ def test_unported_surfaces_name_their_roadmap_item(call):
         getattr(sess, call)()
 
 
-@pytest.mark.parametrize("kw", [{"store_path": "x"},
-                                {"memory_budget_bytes": 1},
-                                {"cluster": object()}])
-def test_unported_tiers_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def _durable_reddit(sess, core):
+    wl, tables = _reddit(core)
+    for name, data in tables.items():
+        sess.write(name, data, core.enumerate_candidates(wl.graph, name)[0])
+    sess.run(wl)
+    sess.run(wl)
+
+
+DURABLE_TIMINGS = ("t", "process", "wall_s", "shuffle_s", "io_s",
+                   "planning_s")
+
+
+def _durable_answer(name, value, root):
+    """An answer with its timings and its store root taken out."""
+    if name in ("telemetry", "telemetry_limit"):
+        return [{k: v for k, v in p.to_record().items()
+                 if k not in DURABLE_TIMINGS} for p in value]
+    if name in ("store_path", "export_node_metrics"):
+        return None if value is None else \
+            str(Path(value).relative_to(root))
+    if name == "cluster_metrics":
+        return {k: v for k, v in value.items()
+                if k not in ("metrics", "generated_unix_s")}, \
+            sorted(value["metrics"])
+    if name == "cluster_metrics_text":
+        return len(value) > 0
+    if name == "telemetry_store":
+        return {k: v for k, v in value.stats().items() if k != "path"}
+    if name == "watchdog":
+        return (value.window, value.tolerance, value.min_runs, value.checks,
+                value.raised_total, value.registry is not None)
+    return value
+
+
+@pytest.mark.parametrize("name", sorted(PASSTHROUGHS))
+def test_durable_passthroughs_match_reference(tmp_path, name):
+    """Over a ``store_path`` both packages answer every storage, cluster
+    and telemetry passthrough with values of the same type, equal apart
+    from timings (and the store's own path)."""
+    from repro.obs.metrics import MetricsRegistry as JRegistry
+    from repro_torch.obs.metrics import MetricsRegistry
+    answers = []
+    for pkg, core, reg in ((lachesis, jcore, JRegistry),
+                           (lachesis_torch, tcore, MetricsRegistry)):
+        root = tmp_path / pkg.__name__
+        kw = {} if pkg is lachesis else {"device": "cpu"}
+        sess = pkg.Session(num_workers=4, backend="host", autoflush=False,
+                           store_path=str(root), metrics=reg(), **kw)
+        _durable_reddit(sess, core)
+        got = PASSTHROUGHS[name](sess)
+        answers.append((type(got).__name__,
+                        _durable_answer(name, got, root)))
+    (jt, want), (tt, got) = answers
+    assert tt == jt
+    assert got == want
+    if name == "flush":
+        assert got == 3          # submissions, authors, integrated
+
+
+@pytest.mark.parametrize("tier", ["cluster", "cluster_root"])
+def test_unported_tiers_raise(tmp_path, tier):
+    """``cluster=`` and a root holding a cluster store raise, naming their
+    ROADMAP item; the durable tier (``store_path=``,
+    ``memory_budget_bytes=``) is ported."""
+    if tier == "cluster":
+        kw = {"cluster": object()}
+    else:
+        (tmp_path / "cluster.json").write_text("{}")
+        kw = {"store_path": str(tmp_path)}
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         lachesis_torch.Session(device="cpu", **kw)
 
 
@@ -407,6 +472,40 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert res.stats.shuffles_performed == 2
         sess.repartition("submissions",
                          enumerate_candidates(wl.graph, "authors")[0])
+        # the durable tier, telemetry, watchdog, history → advisor, engine
+        import tempfile
+        import warnings
+        from repro_torch.core import (Engine, HistoryStore, apply_decision,
+                                      partitioning_creation)
+        from repro_torch.core.dsl import reddit_loader
+        from repro_torch.data.storage import DurableStore, load_current
+        from repro_torch.obs import RegressionDetector, TelemetryStore
+        root = tempfile.mkdtemp()
+        hist = HistoryStore(root + "/history.jsonl")
+        dur = lachesis_torch.Session(num_workers=4, device="cpu",
+                                     store_path=root + "/s", history=hist,
+                                     memory_budget_bytes=1 << 20)
+        loader = reddit_loader("loader", "raw", "submissions", "json")
+        dur.write("raw", {"author": np.arange(50) % 7,
+                          "score": np.ones(50, np.float32)})
+        dur.write("authors", {"author": np.arange(7)})
+        dur.run(loader, timestamp=1.0)
+        dur.run(wl, timestamp=2.0)
+        dec = partitioning_creation(loader, "submissions", hist,
+                                    dataset_bytes=1e6)
+        apply_decision(dur.store, dec)
+        assert dur.store.spill("submissions") and dur.flush() == 0
+        again = lachesis_torch.Session(store_path=root + "/s", device="cpu")
+        assert again.read("submissions").generation == 1
+        assert len(again.telemetry()) == 2
+        assert isinstance(again.watchdog, RegressionDetector)
+        assert isinstance(again.telemetry_store, TelemetryStore)
+        assert again.export_node_metrics("n") and again.cluster_metrics()
+        assert DurableStore(root + "/s").decisions() == []
+        assert load_current(root + "/s/datasets/submissions").generation == 1
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            Engine(again.store).run(wl)
         # the LM serving slice: configs, kernels, models, serve
         import torch
         from repro_torch.configs import get_config
