@@ -52,13 +52,37 @@ Phases (any failure exits non-zero before the result line):
    applies it device to device; the parent reopens generation 1 and holds
    it to the host twin's after the same repartition.  It runs in a
    temporary directory under ``build/`` that needs about 8 GB of free disk
-   (checked first) and is removed at the end.
+   (checked first) and is removed at the end;
+10. the Autopilot and the serving frontend on the card (``repro_torch.
+   service``), over ``drift_tables`` at TPC-H SF 1 cardinalities (lineitem
+   6,000,000 rows, orders 1,500,000, part 200,000; m = 32; SF 10 would
+   make the host-numpy joins of eleven runs cost minutes): (a) the drift
+   scenario's steps on a durable device store in a temporary directory
+   under ``build/`` (batched persistence, flushed at the end; removed
+   afterwards): 3 q_orderkey runs, a tick that moves lineitem and orders
+   to orderkey d2d, a run with both join shuffles elided, 6 q_partkey runs
+   with a tick in lineitem's cooldown after the second, a tick that moves
+   lineitem to partkey d2d, a last run; every aggregate equal to the host
+   backend's, every gate printed, each apply's wall not smaller than the
+   CUDA-event time of its repartition, and a fresh Session on the root
+   explaining the same why-records; (b) the skew actions over a Zipf
+   lineitem at SF 0.25 (1,500,000 rows): a salt on an adaptive-capacity
+   store and a rebucket (no row to the host) on a uniform one, each
+   layout equal to a host twin's after the same actions; (c)
+   ``Session.serve(max_workers=8, max_queue=64)`` with 16 clients of 4
+   read-only lineitem aggregates (by partkey, elided, and by orderkey,
+   re-bucketed on the card) while 4 d2d flips alternate lineitem's key:
+   every result equal to the serial baseline, the generation up by 4, the
+   hash kernels' launches exactly the flips' and the executions' device
+   re-buckets; then ``ap.start``/``stop`` with no error.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
 be the single pass), each of phase 7's serves (flash attention, 24
-launches per prefill), each of phase 8's (SSD scan, 48), and phase 9 (the
-hash-partition kernels again, the child's launches added).
+launches per prefill), each of phase 8's (SSD scan, 48), phase 9 (the
+hash-partition kernels again, the child's launches added) and each part of
+phase 10 (the hash-partition kernels, counted under a lock across the
+frontend's threads).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -1364,6 +1388,407 @@ def _run_durable(torch, np, lt, tcore, HistoryStore, lineitem, tpch1, tmp,
     return child["launches"]
 
 
+# -- phase 10: the Autopilot and the serving frontend on the card --------------
+
+# drift_tables at TPC-H SF 1 cardinalities; the skew actions' zipf lineitem
+# at SF 0.25 (SF 1 would make their host-numpy runs dominate the phase)
+P10_SF1 = (6_000_000, 1_500_000, 200_000)
+P10_SKEW = (1_500_000, 375_000, 50_000)
+P10_FLIPS = 4
+
+
+def p10_same(np, got, want, what):
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: columns {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        g = g.cpu().numpy() if hasattr(g, "cpu") else np.asarray(g)
+        w = w.cpu().numpy() if hasattr(w, "cpu") else np.asarray(w)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: column {k} differs")
+
+
+def p10_same_layout(np, dev, host, what):
+    p10_same(np, dev.columns, host.columns, what)
+    if not np.array_equal(dev.counts, host.counts):
+        raise AssertionError(f"{what}: counts differ")
+    dc, hc = dev.capacity_map, host.capacity_map
+    if (dc is None) != (hc is None) or (dc is not None and not (
+            np.array_equal(dc.capacities, hc.capacities)
+            and np.array_equal(dc.offsets, hc.offsets))):
+        raise AssertionError(f"{what}: capacity maps differ")
+    if dev.partitioner.signature() != host.partitioner.signature():
+        raise AssertionError(f"{what}: partitioners differ")
+
+
+def p10_event_timer(torch, store):
+    """Wrap ``store.repartition`` in CUDA events; returns the list the
+    (start, end) pairs land in, one per call."""
+    events, orig = [], store.repartition
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    store.repartition = timed
+    return events
+
+
+def p10_tick(torch, ap, events, label, card):
+    """One tick: print every gate, then each apply's wall beside the
+    CUDA-event time of its repartition (the wall must not be smaller)."""
+    n0 = len(events)
+    rep = ap.tick()
+    torch.cuda.synchronize()
+    for w in rep.why:
+        sc = w["score"] or {}
+        gates = " ".join(f"{g['gate']}={'pass' if g['passed'] else 'FAIL'}"
+                         for g in w["gates"])
+        print(f"phase 10: {label} gate {w['dataset']} {w['action']} "
+              f"{w['candidate'] or '-'}: accepted={w['accepted']} "
+              f"benefit_s={sc.get('benefit_s', 0.0):.6f} "
+              f"padding_benefit_s={sc.get('padding_benefit_s', 0.0):.6f} "
+              f"repartition_s={sc.get('repartition_s', 0.0):.6f} "
+              f"io_s={sc.get('io_s', 0.0):.6f} "
+              f"hysteresis={sc.get('hysteresis', 0.0)} "
+              f"amortized={sc.get('amortized_benefit_s', 0.0):.6f} "
+              f"gated_cost={sc.get('gated_cost_s', 0.0):.6f} {gates}",
+              flush=True)
+    timed = iter(events[n0:])
+    for a in rep.applied:
+        line = (f"phase 10: {label} applied {a.dataset} {a.kind} "
+                f"path={a.path} generation={a.generation} "
+                f"wall_s={a.repartition_wall_s:.6f}")
+        if a.kind in ("repartition", "unsalt", "salt"):
+            start, end = next(timed)
+            ev_s = start.elapsed_time(end) / 1e3
+            line += f" cuda_event_s={ev_s:.6f}"
+            if a.repartition_wall_s < ev_s:
+                raise AssertionError(f"{label}: {a.dataset} apply wall "
+                                     f"{a.repartition_wall_s} s < its "
+                                     f"CUDA-event time {ev_s} s")
+        print(line + f" on {card}", flush=True)
+    return rep
+
+
+def p10_drift(torch, np, lt, svc, tmp, card):
+    """(a) The drift scenario's steps on a durable device store; the host
+    backend's results are the reference."""
+    tables = svc.drift_tables(*P10_SF1, seed=0)
+    host = lt.Session(num_workers=M, backend="host")
+    for name, data in tables.items():
+        host.write(name, data)
+    want = {}
+    for q in (svc.q_orderkey, svc.q_partkey):
+        t0 = time.perf_counter()
+        wl = q()
+        want[wl.app_id] = svc.aggregate_result(host.run(wl).values, wl)
+        print(f"phase 10: (a) host backend {wl.app_id}: "
+              f"wall_s={time.perf_counter() - t0:.4f} (host numpy)",
+              flush=True)
+    # batched persistence: with autoflush every run would persist its few
+    # hundred output bytes and the io calibration would price lineitem's
+    # generation at fsync latency (PERF.md §7); flushed explicitly below
+    sess = lt.Session(store_path=str(tmp / "store"), num_workers=M,
+                      autoflush=False)
+    for name, data in tables.items():
+        sess.write(name, data)
+    torch.cuda.synchronize()
+    events = p10_event_timer(torch, sess.store)
+    ap = sess.autopilot(clock=svc.LogicalClock(),
+                        config=svc.default_drift_config())
+
+    def run(q, what):
+        """One observed run, held to the host backend's aggregate."""
+        wl = q()
+        t0 = time.perf_counter()
+        res = sess.run(wl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        p10_same(np, svc.aggregate_result(res.values, wl), want[wl.app_id],
+                 f"(a) {what}")
+        st = res.stats
+        print(f"phase 10: (a) {what}: wall_s={wall:.4f} "
+              f"shuffles={st.shuffles_performed} elided={st.shuffles_elided} "
+              f"shuffle_s={st.shuffle_s:.4f} == host backend on {card}",
+              flush=True)
+        return st
+
+    def lineitem():
+        ds = sess.read("lineitem")
+        return ds.generation, ds.partitioner.signature()
+
+    for i in range(3):
+        run(svc.q_orderkey, f"q_orderkey {i}")
+    rep_a = p10_tick(torch, ap, events, "(a) tick A", card)
+    got = {a.dataset: a for a in rep_a.applied}
+    if not {"lineitem", "orders"} <= set(got) or \
+            {got[d].path for d in ("lineitem", "orders")} != {"d2d"}:
+        raise AssertionError(f"(a) tick A applied "
+                             f"{[(a.dataset, a.path) for a in rep_a.applied]}")
+    if lineitem() != (1, "scan/attr:orderkey/partition[hash]"):
+        raise AssertionError(f"(a) lineitem after tick A: {lineitem()}")
+    st = run(svc.q_orderkey, "q_orderkey after tick A")
+    if st.shuffles_elided != 2:
+        raise AssertionError("(a) both join shuffles must be elided")
+    for i in range(6):
+        run(svc.q_partkey, f"q_partkey {i}")
+        if i == 1:
+            mid = p10_tick(torch, ap, events, "(a) tick B (cooldown)", card)
+            if "lineitem" in {a.dataset for a in mid.applied}:
+                raise AssertionError("(a) lineitem flipped in cooldown")
+    rep_b = p10_tick(torch, ap, events, "(a) tick B", card)
+    got = {a.dataset: a for a in rep_b.applied}
+    if "lineitem" not in got or got["lineitem"].path != "d2d":
+        raise AssertionError(f"(a) tick B applied "
+                             f"{[(a.dataset, a.path) for a in rep_b.applied]}")
+    if lineitem() != (2, "scan/attr:partkey/partition[hash]"):
+        raise AssertionError(f"(a) lineitem after tick B: {lineitem()}")
+    st = run(svc.q_partkey, "q_partkey after tick B")
+    if st.shuffles_elided != 2:
+        raise AssertionError("(a) both partkey join shuffles must be elided")
+    t0 = time.perf_counter()
+    published = sess.flush()
+    print(f"phase 10: (a) flushed {published} generation(s) in "
+          f"{time.perf_counter() - t0:.4f} s on {card}", flush=True)
+    live = sess.explain_decisions(limit=1 << 30)
+    fresh = lt.Session(store_path=str(tmp / "store"))
+    if fresh.explain_decisions(limit=1 << 30) != live or not live:
+        raise AssertionError("(a) a fresh Session explains other records")
+    if fresh.read("lineitem").generation != 2:
+        raise AssertionError("(a) the reopened lineitem is not generation 2")
+    print(f"phase 10: (a) {len(live)} why-records, equal in a fresh Session "
+          f"on the same root; lineitem generations 0 → 1 (orderkey, d2d) → "
+          f"2 (partkey, d2d); every aggregate equal to the host backend's",
+          flush=True)
+
+
+def p10_skew(torch, np, lt, svc, tcore, card):
+    """(b) Salt on an adaptive-capacity device store, rebucket on a uniform
+    one (an adaptive store plans every layout's capacity map when it
+    writes it, so its maps never differ from their plans), each layout
+    held to a host twin put through the same actions."""
+    from repro_torch.data.partition_store import StoredDataset
+    tables = svc.drift_tables(*P10_SKEW, seed=1, skew=1.5)
+    for label, adaptive, cfg_kw, want_kind in (
+            ("salt", True, {}, "salt"),
+            ("rebucket", False, dict(skew_actions=True,
+                                     hot_key_fraction=2.0), "rebucket")):
+        dev = lt.Session(num_workers=M, adaptive_capacity=adaptive)
+        host = lt.Session(num_workers=M, backend="host",
+                          adaptive_capacity=adaptive)
+        for name, data in tables.items():
+            dev.write(name, data)
+            host.write(name, data)
+        events = p10_event_timer(torch, dev.store)
+        ap = dev.autopilot(clock=svc.LogicalClock(), config=svc.
+                           AutopilotConfig(min_runs=2.0, hysteresis=0.5,
+                                           cooldown_ticks=0, **cfg_kw))
+        wl = svc.q_orderkey()
+        ref = svc.aggregate_result(host.run(wl).values, wl)
+        for _ in range(3):
+            dev.run(wl)
+        # tests/test_skew_adaptive.py's calibrations: a fast network and
+        # slow storage, the skew actions' sweet spot
+        ap.cost_model.observe_shuffle(1e9, 0.1)
+        ap.cost_model.observe_io(1e6, 1.0)
+        kinds = []
+        gathers = []
+        orig_gather = StoredDataset.gather
+        for tick in range(4):
+            if want_kind == "rebucket" and "repartition" in kinds:
+                # the rebucket's tick: no valid row may reach the host
+                StoredDataset.gather = lambda self: (
+                    gathers.append(self.name), orig_gather(self))[1]
+            try:
+                rep = p10_tick(torch, ap, events, f"(b) {label} tick {tick}",
+                               card)
+            finally:
+                StoredDataset.gather = orig_gather
+            for a in rep.applied:
+                kinds.append(a.kind)
+                if a.kind in ("repartition", "salt", "unsalt"):
+                    host.store.repartition(host.read(a.dataset),
+                                           a.decision.candidate, swap=True)
+                else:
+                    host.store.rebucket(a.dataset)
+                if a.dataset == "lineitem":
+                    want_path = {"repartition": "d2d", "salt": "host",
+                                 "rebucket": "rebucket"}[a.kind]
+                    if a.path != want_path:
+                        raise AssertionError(f"(b) {a.kind} took {a.path}")
+                p10_same_layout(np, dev.read(a.dataset),
+                                host.read(a.dataset),
+                                f"(b) {label} {a.kind} {a.dataset}")
+            if want_kind in kinds:
+                break
+        if want_kind not in kinds:
+            raise AssertionError(f"(b) no {want_kind} in {kinds}")
+        if gathers:
+            raise AssertionError(f"(b) the rebucket gathered {gathers} to "
+                                 "the host")
+        ds = dev.read("lineitem")
+        if not all(v.device.type == dev.device.type
+                   for v in ds.columns.values()):
+            raise AssertionError(f"(b) {label}: lineitem left the card")
+        res = dev.run(wl)
+        p10_same(np, svc.aggregate_result(res.values, wl), ref,
+                 f"(b) {label} run")
+        print(f"phase 10: (b) {label}: actions {kinds}; lineitem skew "
+              f"{ds.skew():.3f}, padded {ds.padded_bytes} B, waste "
+              f"{ds.padding_waste()} B, bucketed "
+              f"{ds.capacity_map is not None}; every layout equal to the "
+              f"host twin's, the aggregate to the host backend's; on {card}",
+              flush=True)
+
+
+def p10_serve(torch, np, lt, svc, tcore, hp, card):
+    """(c) 16 clients through ``Session.serve`` while lineitem flips d2d
+    underneath; then the Autopilot's background thread."""
+    import threading
+    from repro_torch.data.partition_store import PartitionStore
+    tables = svc.drift_tables(*P10_SF1, seed=2)
+    store = PartitionStore(num_workers=M, max_retired_generations=8)
+    sess = lt.Session(store)
+
+    def agg(key):
+        wl = lt.Workload(f"lineitem-by-{key}")
+        li = wl.scan("lineitem")
+        wl.aggregate(li, key=li[key], reducer="sum")
+        return wl
+
+    cands = {k: tcore.enumerate_candidates(agg(k).graph, "lineitem")[0]
+             for k in ("orderkey", "partkey")}
+    sess.write("lineitem", tables["lineitem"], cands["partkey"])
+    want = {k: svc.aggregate_result(sess.run(agg(k)).values, agg(k))
+            for k in cands}
+    torch.cuda.synchronize()
+    hp.reset_launches()
+    tickets, errors, flips = [], [], []
+    front = sess.serve(max_workers=8, max_queue=64)
+    go = threading.Event()
+
+    def client(cid):
+        try:
+            go.wait(60)
+            for j in range(4):
+                key = ("partkey", "orderkey")[(cid + j) % 2]
+                wl = agg(key)
+                t = front.submit(wl, block=True, timeout=600)
+                tickets.append(t)
+                p10_same(np, svc.aggregate_result(t.result(600).values, wl),
+                         want[key], f"(c) client {cid} {key}")
+        except Exception as e:              # noqa: BLE001
+            errors.append((cid, e))
+
+    def flipper():
+        try:
+            go.wait(60)
+            for i in range(P10_FLIPS):
+                key = ("orderkey", "partkey")[i % 2]
+                new, _ = store.repartition(store.read("lineitem"),
+                                           cands[key], swap=True)
+                flips.append((new.generation, store.write_log[-1]["path"]))
+        except Exception as e:              # noqa: BLE001
+            errors.append(("flipper", e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(16)]
+    threads.append(threading.Thread(target=flipper))
+    for t in threads:
+        t.start()
+    gen0 = store.read("lineitem").generation
+    t0 = time.perf_counter()
+    go.set()
+    for t in threads:
+        t.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("(c) a client or the flipper hung")
+    if errors:
+        raise AssertionError(f"(c) {len(errors)} failures, first "
+                             f"{errors[0]!r}")
+    st = front.stats()
+    launched = dict(hp.LAUNCHES)
+    gen1 = store.read("lineitem").generation
+    if gen1 - gen0 != P10_FLIPS or {p for _, p in flips} != {"d2d"}:
+        raise AssertionError(f"(c) flips {flips}: generation {gen0} → "
+                             f"{gen1}")
+    runs = {id(t): t.result(0) for t in tickets}.values()
+    rebuckets = sum(r.stats.device_repartitions for r in runs)
+    expect = {"hash_partition": P10_FLIPS,
+              "hash_partition_padded": rebuckets,
+              "scatter_perm": P10_FLIPS + rebuckets}
+    if launched != expect:
+        raise AssertionError(f"(c) launches {launched}, expected {expect}")
+    if st["completed"] + st["coalesced"] != 64 or st["failed"]:
+        raise AssertionError(f"(c) frontend stats {st}")
+    print(f"phase 10: (c) 16 clients x 4 requests under {P10_FLIPS} d2d "
+          f"flips (generation {gen0} → {gen1}): every result equal to the "
+          f"serial baseline; executions {st['completed']}, coalesced "
+          f"{st['coalesced']} (rate {st['coalesced'] / st['submitted']:.4f}"
+          f"), device re-buckets {rebuckets}; p50_ms={st['p50_ms']:.3f} "
+          f"p99_ms={st['p99_ms']:.3f} throughput={64 / wall:.3f} req/s over "
+          f"wall_s={wall:.4f}; launches {launched} exact; on {card}",
+          flush=True)
+    ap = sess.autopilot(config=svc.AutopilotConfig(hysteresis=0.5))
+    for _ in range(2):
+        front.run(agg("orderkey"), timeout=600)
+    ap.start(period_s=0.2)
+    try:
+        deadline = time.time() + 60
+        while not ap.optimizer.reports and time.time() < deadline:
+            front.run(agg("orderkey"), coalesce=False, timeout=600)
+    finally:
+        ap.stop(timeout=120)
+        front.close()
+    if ap.optimizer.last_error is not None:
+        raise AssertionError(f"(c) the background Autopilot failed: "
+                             f"{ap.optimizer.last_error!r}")
+    if not ap.optimizer.reports:
+        raise AssertionError("(c) the background Autopilot never ticked")
+    applied = [(a.dataset, a.kind, a.path)
+               for r in ap.optimizer.reports for a in r.applied]
+    print(f"phase 10: (c) ap.start/stop: {len(ap.optimizer.reports)} "
+          f"tick(s), applied {applied}, last_error None; on {card}",
+          flush=True)
+
+
+def run_service(torch, np, lt, tcore, hp):
+    """Phase 10; returns the hash kernels' launches over the phase."""
+    import shutil
+    import tempfile
+    from repro_torch import service as svc
+
+    card = card_line()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase10-", dir=build))
+    launches = Counter()
+    try:
+        for part, fn in (("(a)", lambda: p10_drift(torch, np, lt, svc, tmp,
+                                                   card)),
+                         ("(b)", lambda: p10_skew(torch, np, lt, svc, tcore,
+                                                  card)),
+                         ("(c)", lambda: p10_serve(torch, np, lt, svc, tcore,
+                                                   hp, card))):
+            hp.reset_launches()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            launches.update(hp.LAUNCHES)
+            print(f"phase 10: {part} done in {time.perf_counter() - t0:.1f} s"
+                  f" on {card}; launches {dict(hp.LAUNCHES)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1469,6 +1894,15 @@ def main() -> int:
     launches["hash_partition_padded"] += phase9["hash_partition_padded"]
     print(f"phase 9: done in {time.perf_counter() - t9:.1f} s on {card}; "
           f"launches (parent + child) {phase9}", flush=True)
+
+    t10 = time.perf_counter()
+    phase10 = run_service(torch, np, lt, tcore, hp)
+    for k in ("hash_partition", "hash_partition_padded", "scatter_perm"):
+        if phase10.get(k, 0) == 0:
+            return fail(f"phase 10 never launched {k}")
+        launches[k] += phase10[k]
+    print(f"phase 10: done in {time.perf_counter() - t10:.1f} s on {card}; "
+          f"launches {phase10}", flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

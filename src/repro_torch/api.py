@@ -140,6 +140,7 @@ class Session:
                                cache_capacity=plan_cache_capacity,
                                metrics=self.metrics_registry)
         self.executor = Executor(store)
+        self._autopilots: List[Any] = []
         self._current: Optional[Workload] = None
         self._wl_counter = 0
         # last-seen ShufflePlan build counter, for per-run rebuild deltas
@@ -408,13 +409,19 @@ class Session:
         return _obs_metrics.snapshot_prometheus_text(self.cluster_metrics())
 
     def explain_decisions(self, limit: int = 50) -> List[Dict[str, Any]]:
-        """Structured why-records of past Autopilot decisions, read from
-        the durable ``decisions.log`` (kind=why rows) — a log the JAX
-        package's Autopilot may have written into the same store.  The
-        Autopilot itself is not ported (ROADMAP Queue 1 item 3), so no
-        in-memory records precede them; [] without ``store_path``."""
+        """Structured why-records for the Autopilot's recent decisions:
+        every candidate's priced score and which gate (hysteresis,
+        worth-it, skew threshold) accepted or rejected it.  Reads the
+        in-memory records of attached autopilots first, then falls back
+        to the durable ``decisions.log`` (kind=why rows, written by either
+        package's Autopilot) so a fresh session on a durable store can
+        still explain past decisions."""
         recs: List[Dict[str, Any]] = []
-        if self.store.is_durable:
+        for ap in self._autopilots:
+            explain = getattr(ap, "explain", None)
+            if explain is not None:
+                recs.extend(explain())
+        if not recs and self.store.is_durable:
             for row in self.store.durable.decisions():
                 if row.get("kind") == "why":
                     # ticks batch their records into one JSONL row
@@ -431,11 +438,26 @@ class Session:
     def rebalance(self, plan=None, **kw):
         raise _not_ported("rebalance", "item 4: cluster/")
 
+    # -- service attach --------------------------------------------------------
     def autopilot(self, **kw):
-        raise _not_ported("autopilot", "item 3: service/")
+        """Attach an online storage optimizer (observer + cost model +
+        decide/apply loop) to this session; returns the
+        :class:`~repro_torch.service.Autopilot`.  Its applies run on the
+        store's device (d2d repartitions, rebuckets)."""
+        from .service import Autopilot
+        ap = Autopilot(self, **kw)
+        self._autopilots.append(ap)
+        return ap
 
     def serve(self, **kw):
-        raise _not_ported("serve", "item 3: service/")
+        """Open a concurrent serving frontend over this session's store
+        (DESIGN §11): bounded admission, request coalescing, per-tenant
+        namespaces/budgets.  Returns the
+        :class:`~repro_torch.service.ServingFrontend`; composes with
+        :meth:`autopilot` — background repartitions stay invisible to
+        in-flight serves."""
+        from .service import ServingFrontend
+        return ServingFrontend(self, **kw)
 
     # -- internals ---------------------------------------------------------------
     def _resolve_wl(self, workload: Optional[Workload]) -> Workload:

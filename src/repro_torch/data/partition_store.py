@@ -53,7 +53,7 @@ from ..core.partitioner import (HASH, PartitionerCandidate, RANDOM,
 from ..obs.tracer import span as _span
 from .capacity import CapacityMap, plan_capacity_map, valid_slot_index
 from .device_repartition import (device_repartition_dataset,
-                                 device_scatter_padded,
+                                 device_scatter_padded, flatten_dataset,
                                  host_counting_sort_dest, shuffle_pids)
 
 
@@ -159,6 +159,10 @@ class StoredDataset:
         if slots <= 0:
             return 0
         return int(self.padded_bytes * (self.num_rows / slots))
+
+    def padding_waste(self) -> int:
+        """Bytes spent on padding alone — what skew costs this layout."""
+        return max(self.padded_bytes - self.valid_bytes, 0)
 
     def skew(self) -> float:
         """max/mean partition fill — load-balance diagnostic."""
@@ -377,6 +381,25 @@ class PartitionStore:
     def root(self) -> Optional[str]:
         return self.durable.root if self.durable is not None else None
 
+    # the cluster tier is not ported: a store is never cluster-backed, and
+    # the Autopilot's cluster phase reads these two and stays off
+    @property
+    def is_cluster(self) -> bool:
+        return False
+
+    @property
+    def directory(self):
+        return None
+
+    def synchronize(self) -> None:
+        """Wait for the device work queued on the store's device (no-op on
+        the CPU).  Kernel launches are asynchronous: a host clock read
+        right after a device repartition would stop before its scatter and
+        gathers end, so every wall that prices device work reads the clock
+        after this."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _attach(self) -> None:
         """Load every dataset's newest consistent generation as memmap
         views (zero-copy; nothing is paged in until first touch)."""
@@ -553,6 +576,15 @@ class PartitionStore:
         return int(sum(int(v.nbytes) for ds in live + retired
                        for v in list(ds.columns.values())
                        if not isinstance(v, np.memmap)))
+
+    def namespace_bytes(self, prefix: str = "") -> int:
+        """Logical bytes of every current-generation dataset whose name
+        starts with ``prefix`` — the serving tier's per-tenant accounting
+        (tenants own disjoint name prefixes, DESIGN §11)."""
+        with self._swap_lock:
+            live = [d for n, d in self.datasets.items()
+                    if n.startswith(prefix)]
+        return int(sum(d.nbytes for d in live))
 
     def is_spilled(self, name: str) -> bool:
         return self.datasets[name].spilled
@@ -860,6 +892,53 @@ class PartitionStore:
             columns[k] = buf.reshape((self.m, cap) + v.shape[1:])
         return columns
 
+    def rebucket(self, name: str) -> Tuple[StoredDataset, int]:
+        """Re-layout ``name``'s current generation under a fresh
+        :class:`CapacityMap` planned from its live histogram — SAME
+        partitioner, so consumer elisions survive and no rows cross the
+        network (a local rewrite, not a shuffle).  Publishes the result as
+        a new generation via the usual atomic flip; returns
+        ``(new ds, 0 bytes moved)``.  A no-op (current ds, 0) when the
+        planned layout equals the current one.
+
+        A device-resident dataset stays on its device: the valid rows are
+        gathered there and scattered into the new layout with no host
+        round trip; the store synchronizes before the logged latency."""
+        t0 = time.perf_counter()
+        with _span("store.rebucket", "store", dataset=name) as sp:
+            ds = self.read(name)
+            counts = np.asarray(ds.counts, np.int64)
+            cmap = plan_capacity_map(counts,
+                                     threshold=self.capacity_threshold)
+            if cmap == ds.capacity_map:
+                sp.set(noop=True)
+                return ds, 0
+            dev = flatten_dataset(ds, device_only=True) \
+                if self._device_resident else {}
+            flat = dev if len(dev) == len(ds.columns) \
+                else flatten_dataset(ds)
+            columns = self._materialize_layout(flat, counts, cmap,
+                                               device_columns=dev or None)
+            self.synchronize()
+            new = StoredDataset(name=name, columns=columns, counts=counts,
+                                partitioner=ds.partitioner,
+                                num_rows=ds.num_rows, nbytes=ds.nbytes,
+                                capacity_map=cmap)
+            self._install(name, new)
+            sp.set(generation=new.generation, bucketed=cmap is not None)
+        self._log_write({
+            "name": name, "rows": new.num_rows, "bytes": new.nbytes,
+            "strategy": ds.partitioner.strategy if ds.partitioner else None,
+            "latency": time.perf_counter() - t0,
+            "skew": new.skew(),
+            "padded_bytes": new.padded_bytes,
+            "valid_bytes": new.valid_bytes,
+            "bucketed": cmap is not None,
+            "path": "rebucket",
+            "generation": new.generation,
+        })
+        return new, 0
+
     # -- read path -------------------------------------------------------------
     def read(self, name: str,
              generation: Optional[int] = None) -> StoredDataset:
@@ -898,11 +977,16 @@ class PartitionStore:
             f"(current gen {ds.generation}, retains last "
             f"{self.max_retired_generations})")
 
+    def stored_partitioners(self) -> Dict[str, Optional[PartitionerCandidate]]:
+        with self._swap_lock:
+            return {n: d.partitioner for n, d in self.datasets.items()}
+
     # -- shuffle (the operation Lachesis exists to avoid) ------------------------
     def repartition(self, ds: StoredDataset,
                     partitioner: PartitionerCandidate,
                     name: Optional[str] = None,
-                    swap: bool = False) -> Tuple[StoredDataset, int]:
+                    mesh=None, swap: bool = False
+                    ) -> Tuple[StoredDataset, int]:
         """Full shuffle.  Returns (new ds, bytes moved).
 
         Bytes moved = (m-1)/m of the dataset on average (every row whose new
@@ -916,7 +1000,14 @@ class PartitionStore:
 
         ``swap=True`` (DESIGN §8) rewrites the dataset *in place* as a new
         generation under its own name: the whole shuffle materializes off
-        to the side, then one atomic pointer flip publishes it."""
+        to the side, then one atomic pointer flip publishes it.
+
+        ``mesh`` placement is not ported yet (ROADMAP Queue 1 item 6)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "PartitionStore.repartition(mesh=) is not ported to the "
+                "torch package yet (ROADMAP Queue 1 item 6: "
+                "core/sharding_bridge.py)")
         t0 = time.perf_counter()
         moved = int(ds.nbytes * (self.m - 1) / self.m)
         name = name or (ds.name if swap else ds.name + "@reparted")
@@ -929,6 +1020,10 @@ class PartitionStore:
                 rsp.set(path="d2d")
                 columns, counts, cmap = device_repartition_dataset(
                     ds, partitioner, self.m, plan_capacity=self._plan_cmap)
+                # the histogram reached the host early; the scatter and
+                # gathers may still run: the logged latency, and the
+                # Autopilot's apply wall around this call, wait for them
+                self.synchronize()
                 new = StoredDataset(name=name, columns=columns, counts=counts,
                                     partitioner=partitioner,
                                     num_rows=int(counts.sum()),

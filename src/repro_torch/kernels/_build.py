@@ -18,7 +18,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -41,6 +41,26 @@ def nvcc() -> str:
 def stream() -> int:
     """PyTorch's current CUDA stream, as the ``void*`` the launchers take."""
     return torch.cuda.current_stream().cuda_stream
+
+
+#: guards every launch counter: the serving frontend launches from many
+#: threads, and ``table[key] += 1`` is a read-modify-write that would lose
+#: counts between them
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(table: Dict[str, int], key: str) -> None:
+    """Add one to ``table[key]``, atomically."""
+    with _COUNT_LOCK:
+        table[key] += 1
+
+
+def reset_counts(*tables: Dict[str, int]) -> None:
+    """Zero every entry of the given launch-counter tables, atomically."""
+    with _COUNT_LOCK:
+        for table in tables:
+            for k in table:
+                table[k] = 0
 
 
 def raise_on(err: int, kernel: str) -> None:

@@ -26,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .._build import CudaLibrary, raise_on, stream
+from .._build import (CudaLibrary, count_launch, raise_on, reset_counts,
+                      stream)
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
@@ -39,7 +40,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -122,5 +123,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              int(window) if window is not None else 0,
                              float(softcap), stream())
     raise_on(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    count_launch(LAUNCHES, "flash_attention")
     return view

@@ -28,7 +28,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import CudaLibrary, raise_on, stream
+from .._build import (CudaLibrary, count_launch, raise_on, reset_counts,
+                      stream)
 
 #: rows of one single-pass scatter tile, and the most bins the single pass
 #: takes (more go to the three passes): the kernel's ``kTileRows`` and
@@ -46,9 +47,7 @@ SCATTER_ROUTES: Dict[str, int] = {"single_pass": 0, "three_pass": 0}
 
 
 def reset_launches() -> None:
-    for table in (LAUNCHES, SCATTER_ROUTES):
-        for k in table:
-            table[k] = 0
+    reset_counts(LAUNCHES, SCATTER_ROUTES)
 
 
 def scatter_route(bins: int) -> str:
@@ -115,7 +114,7 @@ def _hash(keys: torch.Tensor, n_valid: int, num_partitions: int,
                                     counts.data_ptr(), n, int(n_valid), m,
                                     int(padded), stream())
     raise_on(err, kernel)
-    LAUNCHES[kernel] += 1
+    count_launch(LAUNCHES, kernel)
     return pids, counts
 
 
@@ -158,6 +157,6 @@ def scatter_perm(pids: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
                                   dest.data_ptr(), scratch.data_ptr(), n,
                                   bins, stream())
     raise_on(err, "scatter_perm")
-    LAUNCHES["scatter_perm"] += 1
-    SCATTER_ROUTES[scatter_route(bins)] += 1
+    count_launch(LAUNCHES, "scatter_perm")
+    count_launch(SCATTER_ROUTES, scatter_route(bins))
     return dest

@@ -25,7 +25,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import CudaLibrary, raise_on, stream
+from .._build import (CudaLibrary, count_launch, raise_on, reset_counts,
+                      stream)
 
 #: the kernel's limits (``kMaxP``, ``kMaxN``, ``kMaxChunk`` in the source);
 #: P, N and chunk must also be multiples of 16
@@ -37,7 +38,7 @@ LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd_scan"] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -130,5 +131,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                               state.data_ptr(), _DTYPES[x.dtype], Bsz, T, H,
                               P, N, int(chunk), strides, stream())
     raise_on(err, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
+    count_launch(LAUNCHES, "ssd_scan")
     return y, state

@@ -537,3 +537,145 @@ def _to_device(tree, device):
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- the service slice: Autopilot, rebucket and the serving frontend ----------
+
+def _same_cols(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        g = got[k].cpu().numpy() if isinstance(got[k], torch.Tensor) \
+            else np.asarray(got[k])
+        w = want[k].cpu().numpy() if isinstance(want[k], torch.Tensor) \
+            else np.asarray(want[k])
+        assert g.dtype == w.dtype, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_cuda_drift_scenario_applies_d2d_and_matches_host(cuda):
+    from repro_torch.service import run_drift_scenario
+    tk.reset_launches()
+    dev = run_drift_scenario()                     # the card by default
+    launched = dict(tk.LAUNCHES)
+    host = run_drift_scenario(backend="host")
+    for tick in (dev.tick_a, dev.tick_b):
+        assert "lineitem" in {a.dataset for a in tick.applied}
+        assert {a.path for a in tick.applied} == {"d2d"}
+    assert dev.lineitem_generations == host.lineitem_generations == [0, 1, 2]
+    assert dev.lineitem_partitioners == host.lineitem_partitioners
+    for f in ("result_pre_a", "result_post_a", "result_pre_b",
+              "result_post_b"):
+        _same_cols(getattr(dev, f), getattr(host, f))
+    for name in ("lineitem", "orders"):
+        ds = dev.store.read(name)
+        assert ds.columns["orderkey"].device.type == "cuda"
+        _same_cols(ds.columns, host.store.read(name).columns)
+    assert launched["hash_partition"] >= 3 and launched["scatter_perm"] > 0
+
+
+def test_cuda_rebucket_stays_on_the_card_and_matches_host(cuda, monkeypatch):
+    from repro_torch.data.partition_store import PartitionStore, StoredDataset
+    from repro_torch.service import drift_tables, q_orderkey
+    tables = drift_tables(n_lineitem=20_000, skew=1.5, seed=2)
+    cand = tcore.enumerate_candidates(q_orderkey().graph, "lineitem")[0]
+    dev = PartitionStore(8, backend="device", device="cuda")
+    host = PartitionStore(8, backend="host")
+    dev.write("lineitem", tables["lineitem"], cand)
+    host.write("lineitem", tables["lineitem"], cand)
+
+    def no_host_gather(self):
+        raise AssertionError("rebucket gathered to the host")
+    monkeypatch.setattr(StoredDataset, "gather", no_host_gather)
+    tk.reset_launches()
+    dnew, _ = dev.rebucket("lineitem")
+    assert tk.LAUNCHES["scatter_perm"] >= 1
+    monkeypatch.undo()
+    hnew, _ = host.rebucket("lineitem")
+    assert dnew.capacity_map is not None and dnew.generation == 1
+    np.testing.assert_array_equal(dnew.capacity_map.capacities,
+                                  hnew.capacity_map.capacities)
+    assert all(v.device.type == "cuda" for v in dnew.columns.values())
+    _same_cols(dnew.columns, hnew.columns)
+
+
+def test_cuda_frontend_eight_clients_equal_serial(cuda):
+    import threading
+    from repro_torch.service import aggregate_result, drift_tables
+    sess = lachesis_torch.Session(num_workers=8)
+    for name, data in drift_tables(n_lineitem=50_000, n_orders=5000,
+                                   n_parts=500).items():
+        sess.write(name, data)
+
+    def q(key):
+        wl = tcore.Workload(f"q-{key}")
+        li = wl.scan("lineitem")
+        other = wl.scan("orders" if key == "orderkey" else "part")
+        j = wl.join(li, other, left_key=li[key], right_key=other[key],
+                    tag=key)
+        wl.aggregate(j, key=j["odate" if key == "orderkey" else "size"],
+                     reducer="sum")
+        return wl
+
+    want = {k: aggregate_result(sess.run(q(k)).values, q(k))
+            for k in ("orderkey", "partkey")}
+    errors = []
+    tk.reset_launches()
+    with sess.serve(max_workers=8, max_queue=64) as front:
+        def client(cid):
+            try:
+                for j in range(3):
+                    key = ("orderkey", "partkey")[(cid + j) % 2]
+                    res = front.run(q(key), coalesce=False, timeout=120,
+                                    block=True)
+                    _same_cols(aggregate_result(res.values, q(key)),
+                               want[key])
+            except Exception as e:              # noqa: BLE001
+                errors.append(e)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        st = front.stats()
+    assert not errors, errors[:2]
+    assert st["completed"] == 24 and st["failed"] == 0
+    # every serve re-buckets each of its 3 partition nodes on the card
+    assert tk.LAUNCHES["hash_partition_padded"] == 24 * 3
+    assert tk.LAUNCHES["scatter_perm"] == 24 * 3
+
+
+def test_cuda_apply_wall_covers_its_device_time(cuda, monkeypatch):
+    """The Autopilot's apply wall (which calibrates the what-if model)
+    is read after the store synchronizes, so it is never smaller than the
+    CUDA-event time of the repartition it timed."""
+    from repro_torch.data.partition_store import PartitionStore
+    from repro_torch.service import (AutopilotConfig, LogicalClock,
+                                     drift_tables, q_orderkey)
+    store = PartitionStore(8, backend="device", device="cuda")
+    for name, data in drift_tables(n_lineitem=2_000_000, n_orders=200_000,
+                                   n_parts=2000).items():
+        store.write(name, data)
+    sess = lachesis_torch.Session(store)
+    ap = sess.autopilot(clock=LogicalClock(),
+                        config=AutopilotConfig(hysteresis=0.0))
+    for _ in range(2):
+        sess.run(q_orderkey())
+    events = []
+    orig = store.repartition
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    monkeypatch.setattr(store, "repartition", timed)
+    rep = ap.tick()
+    torch.cuda.synchronize()
+    assert [a.path for a in rep.applied] == ["d2d", "d2d"]
+    for a, (start, end) in zip(rep.applied, events):
+        assert a.repartition_wall_s * 1e3 >= start.elapsed_time(end)

@@ -376,8 +376,8 @@ def test_in_memory_passthroughs_match_reference(name):
     assert type(got) is type(want) and got == want
 
 
-@pytest.mark.parametrize("call", ["autopilot", "serve", "export_trace",
-                                  "plan_rebalance", "rebalance"])
+@pytest.mark.parametrize("call", ["export_trace", "plan_rebalance",
+                                  "rebalance"])
 def test_unported_surfaces_name_their_roadmap_item(call):
     sess = lachesis_torch.Session(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -506,6 +506,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
             Engine(again.store).run(wl)
+        # the service: drift scenario, Autopilot, serving frontend
+        from repro_torch.service import (AutopilotConfig, LogicalClock,
+                                         q_orderkey, run_drift_scenario)
+        rep = run_drift_scenario(device="cpu", n_lineitem=2000)
+        assert rep.lineitem_generations == [0, 1, 2]
+        svc = lachesis_torch.Session(num_workers=4, device="cpu",
+                                     store_path=root + "/svc")
+        for name in ("lineitem", "orders", "part"):
+            svc.write(name, rep.store.read(name).gather())
+        ap = svc.autopilot(clock=LogicalClock(),
+                           config=AutopilotConfig(hysteresis=0.0))
+        with svc.serve(max_workers=2, max_queue=4) as front:
+            for _ in range(2):
+                front.run(q_orderkey(), timeout=60)
+        assert [a.path for a in ap.tick().applied] == ["d2d", "d2d"]
+        assert lachesis_torch.Session(
+            store_path=root + "/svc", device="cpu").explain_decisions() \
+            == svc.explain_decisions()
         # the LM serving slice: configs, kernels, models, serve
         import torch
         from repro_torch.configs import get_config
