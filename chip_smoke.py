@@ -74,7 +74,25 @@ Phases (any failure exits non-zero before the result line):
    re-bucketed on the card) while 4 d2d flips alternate lineitem's key:
    every result equal to the serial baseline, the generation up by 4, the
    hash kernels' launches exactly the flips' and the executions' device
-   re-buckets; then ``ap.start``/``stop`` with no error.
+   re-buckets; then ``ap.start``/``stop`` with no error;
+11. the cluster tier (``repro_torch.cluster``) on the card across three
+   processes (this script with ``--phase11-child``, started by phase 11
+   itself), each traced under its own label: (write) TPC-H SF 10 lineitem
+   and orders hash-partitioned on orderkey and part round-robin into a
+   device cluster store of 4 node directories (replication 2, consistent
+   hashing), the expected bits saved, q04-like (both shuffles elided) and
+   q17-like (both re-bucketed) consumers held to exact row counts;
+   (crash) a reopen and a rebalance onto a fifth node that dies after one
+   dataset, before the epoch commit (``abort_after=1``), its trace spilled
+   from ``on_abort``; (reopen) recovery to the old epoch bit-identical, a
+   clean rebalance within the incremental bound, a node's directory
+   deleted and every dataset served bit-identically from the survivors
+   (columns on the card), one Autopilot tick that turns the lost node into
+   an applied rebalance, a d2d repartition of lineitem on the cluster store
+   (wall against CUDA events), an aggregate over part, and the three
+   processes' traces merged and checked as the reference's cluster smoke
+   checks them.  It runs in a temporary directory under ``build/`` whose
+   free disk is checked first, and removes it.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -82,7 +100,8 @@ be the single pass), each of phase 7's serves (flash attention, 24
 launches per prefill), each of phase 8's (SSD scan, 48), phase 9 (the
 hash-partition kernels again, the child's launches added) and each part of
 phase 10 (the hash-partition kernels, counted under a lock across the
-frontend's threads).
+frontend's threads) and each process of phase 11 (the hash-partition
+kernels, equal to the counts a CPU dry run of its steps predicts).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -1789,6 +1808,581 @@ def run_service(torch, np, lt, tcore, hp):
     return dict(launches)
 
 
+# -- phase 11: the cluster tier across three processes -------------------------
+
+P11_NODES = ("node-a", "node-b", "node-c", "node-d")
+P11_NEW, P11_LOST = "node-e", "node-a"
+P11_STEPS = ("write", "crash", "reopen")
+P11_DATASETS = ("lineitem", "orders", "part")
+P11_REPLICATION = 2
+#: full replicated generations of the three datasets the store may hold
+#: on disk at once (the current one and two retired; unchanged parts of a
+#: rebalanced generation are hard links)
+P11_GENERATIONS = 3
+P11_SLACK_BYTES = 1 << 30
+#: the hash kernels' exact launches in each step, predicted by a CPU dry
+#: run of the same steps with the shuffles forced into the card's fused
+#: mode (``tests/test_torch_phase11.py``): write — three dispatched writes
+#: (two keyed), q04-like with both shuffles elided, q17-like with both
+#: re-bucketed; crash — none (a rebalance moves bytes, not rows); reopen —
+#: a d2d repartition of lineitem and one re-bucketed aggregate over part
+P11_LAUNCHES = {
+    "write": {"hash_partition": 2, "hash_partition_padded": 2,
+              "scatter_perm": 5},
+    "crash": {"hash_partition": 0, "hash_partition_padded": 0,
+              "scatter_perm": 0},
+    "reopen": {"hash_partition": 1, "hash_partition_padded": 1,
+               "scatter_perm": 2},
+}
+
+
+def p11_env(torch, np, device, sf, card, reset, read):
+    """What the phase-11 steps run with: the packages, the device, the
+    scale factor, the card's line, and the launch counters' reset/read."""
+    from types import SimpleNamespace
+
+    import lachesis_torch as lt
+    import repro_torch.core as tcore
+    from repro_torch import obs
+    from repro_torch import service as svc
+    from repro_torch.core.executor import TableVal
+    from repro_torch.data import device_repartition as tdr
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    return SimpleNamespace(torch=torch, np=np, lt=lt, tcore=tcore, obs=obs,
+                           svc=svc, tdr=tdr, TableVal=TableVal,
+                           device=device, sf=sf, card=card, sync=sync,
+                           reset=reset, launches=read, attach_seen=0)
+
+
+def p11_timed(env, fn):
+    """(fn(), its host wall, read after a synchronize)."""
+    env.sync()
+    t0 = time.perf_counter()
+    out = fn()
+    env.sync()
+    return out, time.perf_counter() - t0
+
+
+def p11_with_timed(env, name, times, fn):
+    """Run ``fn`` with the store module's ``name`` wrapped in CUDA events
+    (their seconds appended to ``times``; None off the card)."""
+    from repro_torch.data import partition_store as tps
+    orig = getattr(tps, name)
+    torch = env.torch
+
+    def timed(*a, **kw):
+        if env.device != "cuda":
+            times.append(None)
+            return orig(*a, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        return out
+    setattr(tps, name, timed)
+    try:
+        return fn()
+    finally:
+        setattr(tps, name, orig)
+
+
+def p11_digests(env, store):
+    """sha256 of every gathered column and of the counts, per dataset:
+    the bits a reopen must reproduce."""
+    import hashlib
+    np = env.np
+    out = {}
+    for name in P11_DATASETS:
+        ds = store.read(name)
+        cols = ds.gather()
+        cols["__counts__"] = np.asarray(ds.counts, np.int64)
+        with ThreadPoolExecutor(len(cols)) as pool:
+            digests = pool.map(
+                lambda kv: (kv[0], str(kv[1].dtype), list(kv[1].shape),
+                            hashlib.sha256(
+                                np.ascontiguousarray(kv[1])).hexdigest()),
+                sorted(cols.items()))
+        out[name] = [list(d) for d in digests]
+    return out
+
+
+def p11_h2d_s(env) -> float:
+    """Seconds the recorded ``cluster.attach`` spans (reassembled columns
+    moved to the store's device) took since the last call."""
+    spans = [s for s in env.obs.finished_spans() if s.name == "cluster.attach"
+             and s.span_id > env.attach_seen]
+    if spans:
+        env.attach_seen = max(s.span_id for s in spans)
+    return sum(s.dur_s for s in spans)
+
+
+def p11_check_bits(env, store, expected, what):
+    t0 = time.perf_counter()
+    got = p11_digests(env, store)
+    if got != expected:
+        bad = [n for n in P11_DATASETS if got[n] != expected[n]]
+        raise AssertionError(f"{what}: {bad} not bit-identical")
+    return time.perf_counter() - t0
+
+
+def p11_on_device(env, store, what):
+    for name in P11_DATASETS:
+        ds = store.read(name)
+        if env.device == "cuda" and any(
+                not isinstance(v, env.torch.Tensor)
+                or v.device.type != "cuda" for v in ds.columns.values()):
+            raise AssertionError(f"{what}: {name}'s reassembled columns are "
+                                 "not CUDA tensors")
+
+
+def p11_checksums(env, ds):
+    """Order-independent exact checksums of a dataset's valid rows: row
+    count and, per column, the int64 sum of its values (floats by their
+    bit patterns)."""
+    np = env.np
+    out = {"rows": int(ds.num_rows)}
+    for k, v in sorted(ds.gather().items()):
+        if v.dtype.kind == "f":
+            v = v.view(np.int32 if v.itemsize == 4 else np.int64)
+        out[k] = int(v.astype(np.int64).sum())
+    return out
+
+
+def p11_write(env, cfg):
+    """Step (a), the first process: a 4-node cluster store on the card
+    (replication 2, consistent hashing), SF-10 lineitem and orders
+    hash-partitioned on orderkey and part round-robin; the expected bits
+    saved beside the store; q04-like (both shuffles elided) and q17-like
+    (both re-bucketed) consumers held to exact row counts."""
+    np, lt, obs = env.np, env.lt, env.obs
+    from repro_torch.cluster import ClusterConfig
+    env.reset()
+    out = {}
+    sess = lt.Session(store_path=cfg["root"], num_workers=M,
+                      device=env.device,
+                      cluster=ClusterConfig(nodes=P11_NODES,
+                                            replication=P11_REPLICATION))
+    tele = sess.telemetry_store
+    with obs.span("cluster_smoke.write", "smoke"):
+        tele.save_trace_context(obs.TRACER.context(), "write")
+        orders, lineitem, part = tpch_tables(np, env.sf, seed=11)
+        q04, q17 = p9_q04(lt.Workload), p9_q17(lt.Workload)
+        cands = {"lineitem": env.tcore.enumerate_candidates(
+                     q04.graph, "lineitem")[0],
+                 "orders": env.tcore.enumerate_candidates(
+                     q04.graph, "orders")[0],
+                 "part": None}
+        data = {"lineitem": lineitem, "orders": orders, "part": part}
+        for name in P11_DATASETS:
+            io0 = sess.store.io_snapshot()
+            _, wall = p11_timed(env, lambda: sess.write(
+                name, data[name], cands[name]))
+            io1 = sess.store.io_snapshot()
+            persist = [s for s in obs.finished_spans()
+                       if s.name == "cluster.persist"
+                       and s.args.get("dataset") == name][-1]
+            nb = io1["bytes_written"] - io0["bytes_written"]
+            out[f"write_{name}"] = {
+                "wall_s": wall, "persist_s": persist.dur_s,
+                "d2h_s": persist.args["d2h_s"], "bytes": nb}
+            rows = len(next(iter(data[name].values())))
+            print(f"phase 11 (write): {name} {rows} rows: "
+                  f"write_s={wall:.4f}, of which persist "
+                  f"{persist.dur_s:.4f} s ({nb} B over {len(P11_NODES)} "
+                  f"nodes x {P11_REPLICATION} replicas), its D2H copy "
+                  f"{persist.args['d2h_s']:.4f} s on {env.card}",
+                  flush=True)
+        for node in P11_NODES:
+            if not Path(cfg["root"], "nodes", node).is_dir():
+                raise AssertionError(f"{node} holds no parts")
+        if sess.store.placement_epoch != 0:
+            raise AssertionError("a fresh cluster store is not at epoch 0")
+        t0 = time.perf_counter()
+        expected = p11_digests(env, sess.store)
+        Path(cfg["work"], "expected.json").write_text(json.dumps(expected))
+        out["digest_s"] = time.perf_counter() - t0
+        want = {"q04": (lineitem["qty"] > 45,
+                        (2, 0)),
+                "q17": (part["size"][lineitem["partkey"]] > 45, (0, 2))}
+        del orders, lineitem, part, data
+        for qname, wl in (("q04", q04), ("q17", q17)):
+            res, wall = p11_timed(env, lambda: sess.run(wl))
+            mask, verdicts = want[qname]
+            got = p9_result(res, env.TableVal)
+            st = res.stats
+            if (st.shuffles_elided, st.shuffles_performed) != verdicts:
+                raise AssertionError(f"{qname}: elided {st.shuffles_elided}"
+                                     f", performed {st.shuffles_performed}")
+            if got.num_rows != int(mask.sum()):
+                raise AssertionError(f"{qname}: {got.num_rows} rows, want "
+                                     f"{int(mask.sum())}")
+            out[f"{qname}_s"] = wall
+            print(f"phase 11 (write): {qname}-like over the cluster store: "
+                  f"elided {st.shuffles_elided}, shuffled "
+                  f"{st.shuffles_performed}, {got.num_rows} rows (exact); "
+                  f"wall_s={wall:.4f} shuffle_s={st.shuffle_s:.4f} on "
+                  f"{env.card}", flush=True)
+            del res, got
+    obs.spill_spans(tele.dir, "write")
+    sess.export_node_metrics("write")
+    out["launches"] = env.launches()
+    return out
+
+
+def p11_crash(env, cfg):
+    """Step (b), the second process: reopen, rebalance onto a fifth node
+    and die after the first dataset is republished, before the epoch
+    commit (``abort_after=1``), spilling the trace from ``on_abort`` with
+    the ``cluster.rebalance`` span open; the new node's half-written
+    directory is torn away."""
+    import shutil
+    lt, obs = env.lt, env.obs
+    from repro_torch.cluster import RebalanceAborted
+    env.reset()
+    out = {}
+    sess, out["attach_s"] = p11_timed(env, lambda: lt.Session(
+        store_path=cfg["root"], device=env.device))
+    store = sess.store
+    if not store.is_cluster or store.placement_epoch != 0:
+        raise AssertionError("the reopen did not find the cluster store at "
+                             "epoch 0")
+    p11_on_device(env, store, "crash reopen")
+    out["h2d_s"] = p11_h2d_s(env)
+    print(f"phase 11 (crash): reopened (parts reassembled, columns to "
+          f"{env.device}) in {out['attach_s']:.4f} s, of which the H2D "
+          f"copies {out['h2d_s']:.4f} s on {env.card}", flush=True)
+    tele = sess.telemetry_store
+    with obs.TRACER.attach(tele.load_trace_context("write")):
+        with obs.span("cluster_smoke.crash", "smoke"):
+            tele.save_trace_context(obs.TRACER.context(), "crash")
+            plan = sess.plan_rebalance(add_nodes=(P11_NEW,),
+                                       reason="smoke-crash")
+            if plan.partitions_moved <= 0:
+                raise AssertionError("the scale-out plan moves nothing")
+
+            def on_abort():
+                obs.spill_spans(tele.dir, "crash")
+                sess.export_node_metrics("crash")
+
+            t0 = time.perf_counter()
+            try:
+                sess.rebalance(plan=plan, abort_after=1, on_abort=on_abort)
+            except RebalanceAborted as e:
+                out["crash_s"] = time.perf_counter() - t0
+                print(f"phase 11 (crash): {e} after {out['crash_s']:.4f} s "
+                      f"({plan.partitions_moved}/{M} partitions planned to "
+                      f"move) on {env.card}", flush=True)
+            else:
+                raise AssertionError("abort_after=1 did not abort")
+    if store.placement_epoch != 0:
+        raise AssertionError("the aborted rebalance flipped the epoch")
+    shutil.rmtree(Path(cfg["root"], "nodes", P11_NEW), ignore_errors=True)
+    out["launches"] = env.launches()
+    return out
+
+
+def p11_check_trace(doc):
+    """The reference's cluster-smoke check over the merged trace: spans
+    from all three processes, paired flows with a cross-process arrow per
+    boundary (each across two pids), and the crashed rebalance present as
+    an ``incomplete`` span of the crash process."""
+    other = doc["otherData"]
+    procs = other["processes"]
+    if set(procs) != set(P11_STEPS):
+        raise AssertionError(f"merged trace has processes {sorted(procs)}")
+    events = doc["traceEvents"]
+    pids = {ev["pid"] for ev in events if ev["ph"] == "X"}
+    if set(procs.values()) - pids:
+        raise AssertionError("a process has no spans in the merged trace")
+    starts = {ev["id"]: ev for ev in events if ev["ph"] == "s"}
+    finishes = {ev["id"]: ev for ev in events if ev["ph"] == "f"}
+    if set(starts) != set(finishes):
+        raise AssertionError("flow starts and finishes do not pair up")
+    if other["cross_process_flows"] < 2:
+        raise AssertionError("fewer than 2 cross-process flows")
+    for i, ev in starts.items():
+        if ev["name"] == "xproc" and finishes[i]["pid"] == ev["pid"]:
+            raise AssertionError("a cross-process flow stays on one pid")
+    if not [ev for ev in events if ev["ph"] == "X"
+            and ev["name"] == "cluster.rebalance"
+            and ev["args"].get("incomplete")
+            and ev["args"].get("process") == "crash"]:
+        raise AssertionError("the crash's open cluster.rebalance is missing")
+
+
+def p11_reopen(env, cfg):
+    """Step (c), the third process: recover to epoch 0 bit-identically,
+    complete the rebalance, delete a node's directory and serve every
+    dataset from the survivors, let one Autopilot tick turn the lost node
+    into an applied rebalance, repartition lineitem device to device on
+    the cluster store, aggregate part, then merge the three processes'
+    traces."""
+    import shutil
+    np, lt, obs, svc = env.np, env.lt, env.obs, env.svc
+    env.reset()
+    out = {}
+    expected = json.loads(Path(cfg["work"], "expected.json").read_text())
+    sess, out["attach_s"] = p11_timed(env, lambda: lt.Session(
+        store_path=cfg["root"], device=env.device))
+    p11_h2d_s(env)
+    tele = sess.telemetry_store
+    with obs.TRACER.attach(tele.load_trace_context("crash")):
+        with obs.span("cluster_smoke.reopen", "smoke"):
+            tele.save_trace_context(obs.TRACER.context(), "reopen")
+            store = sess.store
+            if store.placement_epoch != 0 or \
+                    store.directory.nodes != P11_NODES:
+                raise AssertionError(
+                    f"recovered epoch {store.placement_epoch} over "
+                    f"{store.directory.nodes}")
+            p11_on_device(env, store, "recovery")
+            check_s = p11_check_bits(env, store, expected, "recovery")
+            print(f"phase 11 (reopen): recovered epoch 0 after the crash, "
+                  f"every dataset bit-identical (attach "
+                  f"{out['attach_s']:.4f} s, check {check_s:.4f} s) on "
+                  f"{env.card}", flush=True)
+
+            res, out["rebalance_s"] = p11_timed(env, lambda: sess.rebalance(
+                add_nodes=(P11_NEW,), reason="smoke-retry"))
+            total = sum(float(store.read(n).padded_bytes)
+                        for n in P11_DATASETS)
+            bound = res.partitions_moved / M * total
+            if res.epoch != 1 or res.bytes_moved > bound + 1e-9:
+                raise AssertionError(f"rebalance: epoch {res.epoch}, moved "
+                                     f"{res.bytes_moved} B > {bound} B")
+            out["rebalance"] = {"moved": res.partitions_moved,
+                                "bytes_moved": res.bytes_moved,
+                                "replica_bytes": res.replica_bytes,
+                                "bytes_linked": res.bytes_linked,
+                                "padded_bytes": total}
+            print(f"phase 11 (reopen): rebalance onto {P11_NEW}: epoch 1, "
+                  f"{res.partitions_moved}/{M} partitions, bytes_moved="
+                  f"{res.bytes_moved} (bound {bound:.0f}), replica_bytes="
+                  f"{res.replica_bytes}, bytes_linked={res.bytes_linked}, "
+                  f"wall_s={out['rebalance_s']:.4f} on {env.card}",
+                  flush=True)
+
+            del sess, store, res
+            shutil.rmtree(Path(cfg["root"], "nodes", P11_LOST))
+            sess, out["replica_attach_s"] = p11_timed(
+                env, lambda: lt.Session(store_path=cfg["root"],
+                                        device=env.device))
+            store = sess.store
+            if store.placement_epoch != 1:
+                raise AssertionError("the reopen lost the committed epoch")
+            p11_on_device(env, store, "replica reads")
+            read = store.io_snapshot()
+            check_s = p11_check_bits(env, store, expected, "replica reads")
+            out["replica_bytes_read"] = read["bytes_read"]
+            out["replica_h2d_s"] = p11_h2d_s(env)
+            print(f"phase 11 (reopen): {P11_LOST}'s directory deleted; "
+                  f"every dataset served from the survivors, bit-identical:"
+                  f" reopen {out['replica_attach_s']:.4f} s "
+                  f"({read['bytes_read']} B of parts read; H2D "
+                  f"{out['replica_h2d_s']:.4f} s), check {check_s:.4f} s on "
+                  f"{env.card}", flush=True)
+
+            ap = sess.autopilot(clock=svc.LogicalClock(),
+                                config=svc.AutopilotConfig(cooldown_ticks=0))
+            health = store.health
+            for step in range(1, health.miss_threshold + 2):
+                for node in P11_NODES[1:] + (P11_NEW,):
+                    health.heartbeat(node, step)
+                health.tick(step)
+            if health.dead_nodes() != [P11_LOST]:
+                raise AssertionError(f"dead nodes {health.dead_nodes()}")
+            rep, tick_s = p11_timed(env, ap.tick)
+            applied = [a for a in rep.applied if a.kind == "rebalance"]
+            why = [w for w in rep.why if w["action"] == "rebalance:node_lost"]
+            if len(applied) != 1 or not why or not why[0]["accepted"] or \
+                    store.placement_epoch != 2 or \
+                    P11_LOST in store.directory.nodes:
+                raise AssertionError(f"the Autopilot did not rebalance the "
+                                     f"lost node away: {rep.applied}")
+            out["autopilot"] = {"tick_s": tick_s,
+                                "wall_s": applied[0].repartition_wall_s,
+                                "moved_bytes": applied[0].moved_bytes}
+            gates = " ".join(f"{g['gate']}={'pass' if g['passed'] else 'FAIL'}"
+                             for g in why[0]["gates"])
+            print(f"phase 11 (reopen): Autopilot tick: node_lost "
+                  f"{P11_LOST} → rebalance applied, epoch 2, moved_bytes="
+                  f"{applied[0].moved_bytes}, wall_s="
+                  f"{applied[0].repartition_wall_s:.4f} (tick "
+                  f"{tick_s:.4f} s), io_s priced "
+                  f"{why[0]['score']['io_s']:.6f}, {gates} on {env.card}",
+                  flush=True)
+
+            before = p11_checksums(env, store.read("lineitem"))
+            by_part = env.tcore.enumerate_candidates(
+                p9_q17(lt.Workload).graph, "lineitem")[0]
+            shuffles = []
+            (new, moved), wall = p11_timed(env, lambda: p11_with_timed(
+                env, "device_repartition_dataset", shuffles,
+                lambda: sess.repartition("lineitem", by_part)))
+            ev = shuffles[0] if shuffles else None
+            persist = [s for s in obs.finished_spans()
+                       if s.name == "cluster.persist"
+                       and s.args.get("dataset") == "lineitem"][-1]
+            if store.write_log[-1]["path"] != "d2d" or len(shuffles) != 1:
+                raise AssertionError("the cluster store's repartition did "
+                                     "not run device to device")
+            if ev is not None and wall < ev:
+                raise AssertionError(f"repartition wall {wall} s < its CUDA-"
+                                     f"event time {ev} s")
+            keys = new.gather()["partkey"]
+            _, counts = env.tdr.shuffle_pids(keys, M, mode="hostperm",
+                                             device="cpu")
+            if not np.array_equal(np.asarray(new.counts), counts) or \
+                    p11_checksums(env, new) != before:
+                raise AssertionError("the d2d repartition changed rows or "
+                                     "misplaced them")
+            out["repartition"] = {"wall_s": wall, "cuda_event_s": ev,
+                                  "persist_s": persist.dur_s,
+                                  "d2h_s": persist.args["d2h_s"],
+                                  "moved": moved}
+            print(f"phase 11 (reopen): d2d repartition of lineitem on "
+                  f"partkey over the cluster store: {new.num_rows} rows, "
+                  f"wall_s={wall:.4f}, of which the d2d shuffle's CUDA "
+                  f"events {ev if ev is None else round(ev, 6)} s and the "
+                  f"persist to {len(store.directory.nodes)} nodes "
+                  f"{persist.dur_s:.4f} s (D2H {persist.args['d2h_s']:.4f}"
+                  f" s); rows and per-partition counts checked on "
+                  f"{env.card}", flush=True)
+            del new, keys
+
+            wl = lt.Workload("part-by-size")
+            wl.aggregate(wl.partition(wl.scan("part")["size"]),
+                         reducer="sum")
+            part = store.read("part").gather()
+            res = sess.run(wl)
+            agg = res.values[max(res.values)]
+            want = np.bincount(part["size"], weights=part["partkey"])
+            got = np.zeros_like(want)
+            got[agg.columns["key"]] = agg.columns["partkey"]
+            if res.stats.device_repartitions != 1 or \
+                    not np.array_equal(got, want):
+                raise AssertionError("the part aggregate is wrong")
+            profiles = sess.telemetry()
+            if len(profiles) < 3 or not {"write", "reopen"} <= {
+                    p.process for p in profiles}:
+                raise AssertionError(f"telemetry across restarts: "
+                                     f"{[p.process for p in profiles]}")
+    obs.spill_spans(tele.dir, "reopen")
+    sess.export_node_metrics("reopen")
+    doc = obs.write_merged_trace(str(Path(cfg["work"], "cluster_trace.json")),
+                                 tele.dir, metadata={"smoke": "cluster"})
+    p11_check_trace(doc)
+    merged = sess.cluster_metrics()
+    if set(merged["nodes"]) != set(P11_STEPS):
+        raise AssertionError(f"merged metrics nodes {merged['nodes']}")
+    obs.parse_prometheus_text(sess.cluster_metrics_text())
+    o = doc["otherData"]
+    out["trace"] = {k: o[k] for k in ("spans", "incomplete", "flows",
+                                      "cross_process_flows")}
+    print(f"phase 11 (reopen): merged trace of {len(o['processes'])} "
+          f"processes: {o['spans']} spans, {o['cross_process_flows']} "
+          f"cross-process flows, {o['incomplete']} incomplete (the crash's "
+          f"cluster.rebalance); {len(profiles)} run profiles across "
+          f"restarts", flush=True)
+    out["launches"] = env.launches()
+    return out
+
+
+P11_STEP_FNS = {"write": p11_write, "crash": p11_crash,
+                "reopen": p11_reopen}
+
+
+def p11_child(cfg) -> int:
+    """One phase-11 process: ``chip_smoke.py --phase11-child CONFIG``."""
+    import torch
+    if not torch.cuda.is_available():
+        return fail("no CUDA device is available")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels.hash_partition import hash_partition as hp
+    obs.enable("full", process=cfg["step"])
+    env = p11_env(torch, np, "cuda", cfg["sf"], card_line(),
+                  hp.reset_launches, lambda: dict(hp.LAUNCHES))
+    out = P11_STEP_FNS[cfg["step"]](env, cfg)
+    print(json.dumps({"child": out}), flush=True)
+    return 0
+
+
+def p11_disk_bytes(root) -> int:
+    """Bytes the store holds on disk, a hard-linked part counted once."""
+    import os
+    seen, total = set(), 0
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            if (st.st_dev, st.st_ino) not in seen:
+                seen.add((st.st_dev, st.st_ino))
+                total += st.st_size
+    return total
+
+
+def run_cluster():
+    """Phase 11 in the parent: three processes over one cluster store in
+    a temporary directory under ``build/``; returns the hash kernels'
+    launches over the phase."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    rows = {"lineitem": 6_000_000 * 24, "orders": 1_500_000 * 20,
+            "part": 200_000 * 12}
+    need = int(sum(rows.values()) * 10 * P11_REPLICATION * P11_GENERATIONS
+               * 33 // 32) + P11_SLACK_BYTES
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise AssertionError(f"phase 11 needs {need} B of free disk under "
+                             f"{build}, and {free} B are free")
+    tmp = Path(tempfile.mkdtemp(prefix="phase11-", dir=build))
+    launches = Counter()
+    try:
+        for step in P11_STEPS:
+            cfg = {"step": step, "root": str(tmp / "store"),
+                   "work": str(tmp), "sf": 10.0}
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--phase11-child", json.dumps(cfg)],
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            lines = proc.stdout.splitlines()
+            for line in lines:
+                if not line.startswith('{"child"'):
+                    print(line, flush=True)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+                raise AssertionError(f"phase 11 {step} process exited "
+                                     f"{proc.returncode}")
+            child = json.loads(next(x for x in lines
+                                    if x.startswith('{"child"')))["child"]
+            if child["launches"] != P11_LAUNCHES[step]:
+                raise AssertionError(f"phase 11 {step}: launches "
+                                     f"{child['launches']}, predicted "
+                                     f"{P11_LAUNCHES[step]}")
+            launches.update(child["launches"])
+            print(f"phase 11: {step} process done in "
+                  f"{time.perf_counter() - t0:.1f} s on {card}; launches "
+                  f"{child['launches']} (as predicted); store on disk "
+                  f"{p11_disk_bytes(tmp / 'store')} B", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1904,6 +2498,15 @@ def main() -> int:
     print(f"phase 10: done in {time.perf_counter() - t10:.1f} s on {card}; "
           f"launches {phase10}", flush=True)
 
+    t11 = time.perf_counter()
+    phase11 = run_cluster()
+    for k in ("hash_partition", "hash_partition_padded", "scatter_perm"):
+        if phase11.get(k, 0) == 0:
+            return fail(f"phase 11 never launched {k}")
+        launches[k] += phase11[k]
+    print(f"phase 11: done in {time.perf_counter() - t11:.1f} s on {card}; "
+          f"launches {phase11}", flush=True)
+
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         return fail(f"kernels never launched on the main path: {missing}")
@@ -1920,8 +2523,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = p9_child(json.loads(sys.argv[2])) \
-            if sys.argv[1:2] == ["--phase9-child"] else main()
+        if sys.argv[1:2] == ["--phase9-child"]:
+            code = p9_child(json.loads(sys.argv[2]))
+        elif sys.argv[1:2] == ["--phase11-child"]:
+            code = p11_child(json.loads(sys.argv[2]))
+        else:
+            code = main()
     except Exception as exc:            # report any phase's failure, exit 1
         import traceback
         traceback.print_exc()

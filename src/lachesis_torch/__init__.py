@@ -14,6 +14,7 @@ Sessions run on the card unless the caller asks for the CPU
 """
 
 from repro_torch.api import RunResult, Session, StalePlanError, UnknownBackendError
+from repro_torch.cluster import ClusterConfig, RebalanceAborted
 from repro_torch.core.backends import (Backend, BackendRegistry, REGISTRY,
                                        backend_names, resolve_backend)
 from repro_torch.core.dsl import Workload
@@ -25,6 +26,7 @@ __all__ = [
     "LogicalPlan", "PhysicalPlan", "Planner",
     "Backend", "BackendRegistry", "REGISTRY", "backend_names",
     "resolve_backend", "UnknownBackendError", "StalePlanError",
+    "ClusterConfig", "RebalanceAborted",
 ]
 
 

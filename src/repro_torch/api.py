@@ -40,17 +40,12 @@ from .data.device_repartition import plan_cache_stats as _shuffle_plan_stats
 from .data.partition_store import PartitionStore, StoredDataset
 from .obs import metrics as _obs_metrics
 from .obs import tracer as _obs_tracer
+from .obs.export import to_chrome_trace, write_chrome_trace
 from .obs.telemetry import RunProfile
 
 __all__ = ["Session", "RunResult", "UnknownBackendError", "StalePlanError"]
 
 RunStats = EngineStats   # the stats schema, under its API-facing name
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the torch package yet (ROADMAP Queue 1 "
-        f"{item})")
 
 
 @dataclass
@@ -113,10 +108,15 @@ class Session:
         ``history`` (a :class:`~repro_torch.core.history.HistoryStore`)
         logs an ExecutionRecord per run, the input of the advisor (Alg. 3).
         ``adaptive_capacity`` (DESIGN §12) lets the store plan non-uniform
-        per-partition capacities on skewed writes.  ``cluster`` belongs to
-        a tier not ported yet and raises ``NotImplementedError``."""
-        if cluster is not None:
-            raise _not_ported("cluster=", "item 4: cluster/")
+        per-partition capacities on skewed writes.
+
+        ``cluster`` (DESIGN §14): a
+        :class:`~repro_torch.cluster.ClusterConfig` shards the durable tier
+        across directories-as-nodes behind a PartitionDirectory; requires
+        ``store_path``.  Reattaching an existing cluster store needs no
+        ``cluster`` argument — membership comes from the on-disk
+        directory epoch.  A device session keeps the reassembled columns
+        on its device."""
         self.registry = registry or REGISTRY
         self._backend: Backend = self.registry.get(backend)
         if store is not None and store_path is not None:
@@ -131,7 +131,11 @@ class Session:
                                    root=store_path,
                                    memory_budget_bytes=memory_budget_bytes,
                                    autoflush=autoflush,
-                                   adaptive_capacity=adaptive_capacity)
+                                   adaptive_capacity=adaptive_capacity,
+                                   cluster=cluster)
+        elif cluster is not None:
+            raise ValueError("cluster= applies to the session-built store; "
+                             "pass a cluster store= object instead")
         self.history = history
         self.run_hooks: List[Callable[[Any, EngineStats], None]] = []
         self.metrics_registry = metrics or _obs_metrics.REGISTRY
@@ -346,12 +350,20 @@ class Session:
     def store_path(self) -> Optional[str]:
         return self.store.root if self.store.is_durable else None
 
-    # -- cluster passthrough -----------------------------------------------------
+    # -- cluster passthrough (DESIGN §14) ------------------------------------
     @property
     def directory(self):
-        """The store's PartitionDirectory: None off-cluster, and
-        ``cluster=`` is not ported."""
-        return None
+        """The store's PartitionDirectory (None off-cluster)."""
+        return self.store.directory
+
+    def plan_rebalance(self, **kw):
+        """Plan an incremental placement change without applying it."""
+        return self.store.plan_rebalance(**kw)
+
+    def rebalance(self, plan=None, **kw):
+        """Apply (or plan-and-apply) a placement change; cached plans
+        against the old placement epoch invalidate automatically."""
+        return self.store.rebalance(plan=plan, **kw)
 
     # -- observability ---------------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
@@ -362,6 +374,17 @@ class Session:
     def metrics_text(self) -> str:
         """The same snapshot in Prometheus text exposition format."""
         return self.metrics_registry.prometheus_text()
+
+    def export_trace(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """Export the tracer's finished spans as Chrome ``trace_event``
+        JSON (open in Perfetto / ``chrome://tracing``).  Writes to
+        ``path`` when given; always returns the document.  Requires
+        tracing on: ``repro_torch.obs.enable()``."""
+        meta = {"session_backend": self.backend,
+                "num_workers": self.num_workers}
+        if path is not None:
+            return write_chrome_trace(path, metadata=meta)
+        return to_chrome_trace(metadata=meta)
 
     def telemetry(self, limit: Optional[int] = None) -> List[RunProfile]:
         """Per-run :class:`RunProfile` records from the store's durable
@@ -427,16 +450,6 @@ class Session:
                     # ticks batch their records into one JSONL row
                     recs.extend(row.get("records") or [])
         return recs[-limit:]
-
-    # -- not ported yet --------------------------------------------------------
-    def export_trace(self, path: Optional[str] = None):
-        raise _not_ported("export_trace", "item 4: obs/export.py")
-
-    def plan_rebalance(self, **kw):
-        raise _not_ported("plan_rebalance", "item 4: cluster/")
-
-    def rebalance(self, plan=None, **kw):
-        raise _not_ported("rebalance", "item 4: cluster/")
 
     # -- service attach --------------------------------------------------------
     def autopilot(self, **kw):

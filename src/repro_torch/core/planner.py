@@ -72,6 +72,12 @@ class PlanKey:
     num_workers: int
     matching: bool
     layout: Tuple[Tuple[str, int, str], ...]
+    #: cluster placement epoch (DESIGN §14): the planner consults the
+    #: PartitionDirectory when keying, so a rebalance — which changes
+    #: where partitions live without changing their contents — still
+    #: invalidates exactly the plans compiled against the old placement.
+    #: -1 on non-cluster stores (constant, so their keys are unchanged).
+    placement_epoch: int = -1
 
 
 _PRIMITIVES = (bool, int, float, str, bytes, type(None))
@@ -172,6 +178,9 @@ class PhysicalPlan:
             f"{name}@gen{gen}[{sig or 'unpartitioned'}]"
             for name, gen, sig in self.key.layout) or "(no scans)"
         lines.append(f"  layout: {layout}")
+        if self.key.placement_epoch >= 0:
+            lines.append("  placement: directory epoch "
+                         f"{self.key.placement_epoch} (cluster)")
         lines.append("  steps:")
         for s in self.steps:
             if s.kind == "scan":
@@ -276,7 +285,8 @@ class Planner:
                        param_signature=param_signature(g),
                        backend=backend.name,
                        num_workers=self.store.m, matching=self.matching,
-                       layout=tuple(layout))
+                       layout=tuple(layout),
+                       placement_epoch=self.store.placement_epoch)
 
     # ---------------------------------------------------------- physical ----
     def physical(self, workload, backend) -> Tuple[PhysicalPlan, bool]:

@@ -58,12 +58,21 @@ from ..core.ir import to_numpy
 from ..kernels.hash_partition.ops import (padded_partition_ids,
                                           partition_ids, scatter_permutation)
 from ..kernels.hash_partition.ref import wang_hash
+from ..obs.tracer import recording as _recording
 from ..obs.tracer import span as _span
 from .capacity import CapacityMap, bucket_capacity, valid_slot_index
 
 Columns = Dict[str, Any]
 
 MODES = ("fused", "hostperm")
+
+
+def _close_after_device(sp, dev) -> None:
+    """A recorded span that wraps device work closes after it: wait for
+    ``dev`` only when ``sp`` records (the untraced path adds no
+    synchronize)."""
+    if _recording(sp) and torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def default_mode(device) -> str:
@@ -475,7 +484,7 @@ def device_rebucket_full(columns: Columns, key_vals, num_partitions: int, *,
     spec = _pack_spec(packs)
 
     with _span("shuffle.dispatch", "shuffle", op="rebucket", rows=n, m=m,
-               bucket=B, mode=mode):
+               bucket=B, mode=mode) as sp:
         if mode == "fused":
             keys_p = torch.zeros(B, dtype=torch.int32, device=dev)
             keys_p[:n] = as_kernel_keys(key_arr, dev)
@@ -494,6 +503,7 @@ def device_rebucket_full(columns: Columns, key_vals, num_partitions: int, *,
             outs_d = plan.fn(torch.from_numpy(order_p).to(dev),
                              tuple(p.data for p in packs))
         outs_np = [o.cpu().numpy() for o in outs_d]
+        _close_after_device(sp, dev)
 
     out: Columns = {}
     device_out: Columns = {}
@@ -591,7 +601,7 @@ def device_scatter_padded(flat_columns: Columns, pids, counts, *,
     R = shape_bucket(total)  # output-row bucket: bases are data, not keys
 
     with _span("shuffle.dispatch", "shuffle", op="scatter", rows=n, m=m,
-               bucket=B, mode=mode):
+               bucket=B, mode=mode) as sp:
         if mode == "fused":
             packs = _build_packs(cols, n, B, dev)
             pids_p = torch.full((B,), m, dtype=torch.int32, device=dev)
@@ -616,6 +626,7 @@ def device_scatter_padded(flat_columns: Columns, pids, counts, *,
             plan = _hostperm_scatter_plan(m, B, R, _pack_spec(packs))
             outs = plan.fn(torch.from_numpy(inv).to(dev),
                            tuple(p.data for p in packs))
+        _close_after_device(sp, dev)
 
     columns: Columns = {}
     for p, mat in zip(packs, outs):

@@ -26,8 +26,10 @@ and consumers elide their shuffles against layouts a previous application
 paid for.  ``memory_budget_bytes`` turns on the eviction loop: cold
 datasets spill to their segments (a device column's memory is freed), reads
 lazily rehydrate, and a device-resident store prefetches host→device on
-read.  The cluster tier (``cluster=``, or a root holding ``cluster.json``)
-raises ``NotImplementedError``.
+read.  The cluster tier (DESIGN §14: ``cluster=``, or a root holding
+``cluster.json``) shards the durable tier across directories-as-nodes; its
+columns are reassembled from per-node parts in RAM and, on a device store,
+moved to the store's device as they attach.
 
 :func:`import_layout` and :func:`export_layout` carry a stored layout across
 as numpy arrays (the port's counterpart of carried weights: this system's
@@ -50,6 +52,7 @@ from ..core.backends import resolve_backend, resolve_device
 from ..core.ir import to_numpy
 from ..core.partitioner import (HASH, PartitionerCandidate, RANDOM,
                                 ROUND_ROBIN)
+from ..obs.tracer import recording as _recording
 from ..obs.tracer import span as _span
 from .capacity import CapacityMap, plan_capacity_map, valid_slot_index
 from .device_repartition import (device_repartition_dataset,
@@ -62,10 +65,6 @@ Columns = Dict[str, Any]
 #: write_log entries retained verbatim; older entries fold into the
 #: monotone ``write_totals`` aggregates
 DEFAULT_WRITE_LOG_CAP = 256
-
-#: where the tier this store does not have yet is planned
-_CLUSTER_ITEM = ("the cluster tier is not ported yet (ROADMAP Queue 1 "
-                 "item 4: cluster/, runtime/)")
 
 
 def _numel(v) -> int:
@@ -134,6 +133,12 @@ class StoredDataset:
             caps = self.capacity_map.capacities
             return int(caps.max()) if caps.size else 0
         return int(next(iter(self.columns.values())).shape[1])
+
+    def slot_capacities(self) -> np.ndarray:
+        """(m,) per-partition slot capacities (uniform ⇒ all equal)."""
+        if self.capacity_map is not None:
+            return self.capacity_map.capacities
+        return np.full(self.num_workers, self.capacity, dtype=np.int64)
 
     def slot_offsets(self) -> np.ndarray:
         """(m,) flat-slot base offset of each partition."""
@@ -282,14 +287,6 @@ class PartitionStore:
                  adaptive_capacity: bool = False,
                  capacity_threshold: float = 0.75,
                  cluster=None):
-        if cluster is not None:
-            raise NotImplementedError(f"cluster=: {_CLUSTER_ITEM}")
-        if root is not None and os.path.exists(os.path.join(root,
-                                                            "cluster.json")):
-            # never open a cluster root as a single node: its columns live
-            # in per-node parts this store cannot read
-            raise NotImplementedError(
-                f"{root} holds a cluster store: {_CLUSTER_ITEM}")
         # UnknownBackendError on typos; `registry` (default: the global
         # one) lets a Session thread its own registry through, so custom
         # backends registered there resolve here too
@@ -342,17 +339,43 @@ class PartitionStore:
         self._last_access: Dict[str, int] = {}
         self._access_clock = itertools.count(1)
         self.durable = None
+        # cluster tier (DESIGN §14): health tracking + the rebalance path
+        # exist only when the durable tier is a ClusterDurableStore
+        self.health = None
         # durable-only observability (DESIGN §15): per-run telemetry
         # history and the regression watchdog reading it
         self.telemetry = None
         self.watchdog = None
+        if cluster is not None and root is None:
+            raise ValueError("cluster=ClusterConfig(...) needs root= "
+                             "(nodes are directories under the store root)")
         if root is not None:
             from ..obs.telemetry import TelemetryStore
             from ..obs.watchdog import RegressionDetector
             from .storage.durable import DurableStore
-            self.durable = DurableStore(
-                root, num_workers=num_workers,
-                max_retired_generations=max_retired_generations)
+            if cluster is not None or os.path.exists(
+                    os.path.join(root, "cluster.json")):
+                if memory_budget_bytes is not None:
+                    raise ValueError(
+                        "a cluster store does not support "
+                        "memory_budget_bytes: columns are reassembled "
+                        "in RAM from per-node parts and cannot be "
+                        "memmap-swapped to a single local segment")
+                from ..cluster.control import ClusterHealth
+                from ..cluster.node import ClusterDurableStore
+                self.durable = ClusterDurableStore(
+                    root, num_workers=num_workers,
+                    max_retired_generations=max_retired_generations,
+                    cluster=cluster)
+                # health watches the LIVE membership (directory epoch),
+                # not the bootstrap config; wired before _attach so the
+                # very first reads feed the straggler detector
+                self.health = ClusterHealth(self.durable.directory.nodes)
+                self.durable.health = self.health
+            else:
+                self.durable = DurableStore(
+                    root, num_workers=num_workers,
+                    max_retired_generations=max_retired_generations)
             # an existing catalog is authoritative for the worker count —
             # segment layouts are (m, capacity) and cannot be re-bucketed
             # on open without a shuffle
@@ -381,15 +404,45 @@ class PartitionStore:
     def root(self) -> Optional[str]:
         return self.durable.root if self.durable is not None else None
 
-    # the cluster tier is not ported: a store is never cluster-backed, and
-    # the Autopilot's cluster phase reads these two and stays off
+    # -- cluster tier (DESIGN §14) -------------------------------------------
     @property
     def is_cluster(self) -> bool:
-        return False
+        return getattr(self.durable, "is_cluster", False)
 
     @property
     def directory(self):
-        return None
+        """Current :class:`~repro_torch.cluster.directory.PartitionDirectory`
+        epoch (None on a non-cluster store)."""
+        return self.durable.directory if self.is_cluster else None
+
+    @property
+    def cluster_config(self):
+        return self.durable.cluster if self.is_cluster else None
+
+    @property
+    def placement_epoch(self) -> int:
+        """Placement generation the planner pins into PlanKeys: a
+        rebalance bumps it, invalidating exactly the plans compiled
+        against the old placement.  -1 on non-cluster stores (one value
+        for every single-host store, so their keys are unaffected)."""
+        return self.durable.directory.epoch if self.is_cluster else -1
+
+    def plan_rebalance(self, **kwargs):
+        """Plan (without applying) an incremental placement change —
+        see :meth:`repro_torch.cluster.rebalancer.Rebalancer.plan`."""
+        from ..cluster.rebalancer import Rebalancer
+        return Rebalancer(self).plan(**kwargs)
+
+    def rebalance(self, plan=None, *, abort_after: Optional[int] = None,
+                  on_abort=None, **kwargs):
+        """Apply a placement change: ``plan`` from :meth:`plan_rebalance`,
+        or plan-and-apply in one step (kwargs as for plan_rebalance).
+        Returns a :class:`~repro_torch.cluster.rebalancer.RebalanceResult`."""
+        from ..cluster.rebalancer import Rebalancer
+        r = Rebalancer(self)
+        if plan is None:
+            plan = r.plan(**kwargs)
+        return r.apply(plan, abort_after=abort_after, on_abort=on_abort)
 
     def synchronize(self) -> None:
         """Wait for the device work queued on the store's device (no-op on
@@ -402,9 +455,25 @@ class PartitionStore:
 
     def _attach(self) -> None:
         """Load every dataset's newest consistent generation as memmap
-        views (zero-copy; nothing is paged in until first touch)."""
+        views (zero-copy; nothing is paged in until first touch).  A
+        cluster store's columns are reassembled from node parts instead,
+        and a device store moves them to its device."""
         for name, ds in self.durable.load_all().items():
-            self.datasets[name] = ds
+            self.datasets[name] = self._cluster_resident(ds)
+
+    def _cluster_resident(self, ds: StoredDataset) -> StoredDataset:
+        """A cluster-loaded generation with its reassembled numpy columns
+        moved to the store's device when the store is device-resident (one
+        H2D copy per column, synchronized); unchanged otherwise."""
+        if not (self.is_cluster and self._storage_prefetch):
+            return ds
+        with _span("cluster.attach", "cluster", dataset=ds.name,
+                   generation=ds.generation) as sp:
+            ds.columns = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                          for k, v in ds.columns.items()}
+            self.synchronize()
+            sp.set(bytes=ds.padded_bytes)
+        return ds
 
     def _log_write(self, entry: Dict[str, Any]) -> None:
         """Append a write_log row, folding overflow into the monotone
@@ -464,6 +533,20 @@ class PartitionStore:
             yield ("watchdog_perf_regressions_total", {},
                    float(self.watchdog.raised_total))
             yield "watchdog_checks_total", {}, float(self.watchdog.checks)
+        if self.is_cluster:
+            for k, v in self.durable.cluster_snapshot().items():
+                yield f"cluster_{k}", {}, float(v)
+            d = self.durable.directory
+            yield "cluster_epoch", {}, float(d.epoch)
+            yield "cluster_directory_lookups_total", {}, float(d.lookups)
+            yield "cluster_nodes", {}, float(len(d.nodes))
+            if self.health is not None:
+                yield ("cluster_heartbeat_misses_total", {},
+                       float(self.health.heartbeat_misses))
+                yield ("cluster_straggler_reissues_total", {},
+                       float(self.health.straggler_reissues))
+                yield ("cluster_nodes_alive", {},
+                       float(len(self.health.alive_nodes())))
 
     # -- sync points: race tests and measurement (DESIGN §11) ---------------
     def set_sync_point(self, point: str,
@@ -490,7 +573,9 @@ class PartitionStore:
         with self._swap_lock:
             return self._install_locks.setdefault(name, threading.Lock())
 
-    def _install(self, name: str, ds: StoredDataset) -> StoredDataset:
+    def _install(self, name: str, ds: StoredDataset,
+                 persist: Optional[Callable[[StoredDataset], Any]] = None
+                 ) -> StoredDataset:
         """Atomically make ``ds`` the current generation of ``name``.
 
         The flip is a single dict assignment under the (global) swap lock;
@@ -500,14 +585,22 @@ class PartitionStore:
         CURRENT) *before* the in-memory flip, so the disk pointer never
         runs ahead of a generation that fully exists.  The fsync-bound
         persist runs under a per-NAME lock only, so a slow repartition of
-        one dataset never blocks writers of another."""
+        one dataset never blocks writers of another.
+
+        ``persist`` overrides the default durable publication for this
+        install (always invoked, regardless of autoflush) — the
+        Rebalancer passes one that republishes under a NEW placement
+        epoch, keeping the flip semantics identical for MVCC readers."""
         with _span("store.install", "store", dataset=name) as sp:
             with self._name_lock(name):
                 prev = self.datasets.get(name)
                 if prev is not None:
                     ds.generation = prev.generation + 1
                 if self.durable is not None:
-                    if self.autoflush:
+                    if persist is not None:
+                        persist(ds)
+                        self._dirty.discard(name)
+                    elif self.autoflush:
                         self.durable.persist(ds)
                         self._dirty.discard(name)
                     else:
@@ -595,8 +688,9 @@ class PartitionStore:
         the store drops its references to the host arrays or device
         tensors, so their memory is freed once no reader holds them.
         Persists first if the generation isn't durable yet.  Returns False
-        on a memory-only store."""
-        if self.durable is None:
+        on a memory-only store, and on a cluster store (assembled columns
+        span per-node parts — no single local segment to memmap)."""
+        if self.durable is None or self.is_cluster:
             return False
         # the per-name lock serializes spill against a concurrent _install
         # of the same dataset (the generation sequence stays linear); other
@@ -733,13 +827,16 @@ class PartitionStore:
             partitioner = PartitionerCandidate(graph=None, strategy=ROUND_ROBIN)
 
         with _span("store.write", "store", dataset=name, rows=n,
-                   strategy=partitioner.strategy):
+                   strategy=partitioner.strategy) as sp:
             if self._device_resident:
                 columns, counts, cmap = self._dispatch_device(
                     data, partitioner, n, seed)
             else:
                 columns, counts, cmap = self._dispatch_host(
                     data, partitioner, n, seed)
+            if _recording(sp):
+                # a recorded span closes after the scatter it wraps
+                self.synchronize()
 
         nbytes = int(sum(np.asarray(v).nbytes for v in data.values()))
         ds = StoredDataset(name=name, columns=columns,
@@ -971,7 +1068,7 @@ class PartitionStore:
             # the durable tier keeps the same retention window on disk
             old = self.durable.load(name, generation)
             if old is not None:
-                return old
+                return self._cluster_resident(old)
         raise RetiredGenerationError(
             f"{name}@gen{generation} not found "
             f"(current gen {ds.generation}, retains last "
@@ -1042,4 +1139,6 @@ class PartitionStore:
             else:
                 rsp.set(path="host")
                 new = self.write(name, ds.gather(), partitioner)
+            if _recording(rsp):
+                self.synchronize()
         return new, moved

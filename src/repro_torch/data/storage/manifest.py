@@ -180,14 +180,29 @@ class Manifest:
 
     def validate(self, ds_dir: str) -> bool:
         """True iff every segment this manifest references exists at its
-        exact byte count — the crash-recovery acceptance check.  (The
-        cluster tier's per-node ``parts`` specs are not ported: a cluster
-        root refuses to open, ROADMAP Queue 1 item 4.)"""
+        exact byte count — the crash-recovery acceptance check.
+
+        Cluster-sharded columns (``parts`` specs, DESIGN §14) validate by
+        *coverage*, not completeness: every partition must be readable
+        from at least one holding node's part, so losing any single node
+        of a replicated placement never invalidates the generation."""
         if self.format > MANIFEST_FORMAT:
             return False
-        return all(segment_valid(os.path.join(ds_dir, spec["file"]),
-                                 spec["nbytes"])
-                   for spec in self.columns.values())
+        for spec in self.columns.values():
+            parts = spec.get("parts")
+            if parts is None:
+                if not segment_valid(os.path.join(ds_dir, spec["file"]),
+                                     spec["nbytes"]):
+                    return False
+                continue
+            covered = set()
+            for part in parts:
+                if segment_valid(os.path.join(ds_dir, part["file"]),
+                                 part["nbytes"]):
+                    covered.update(int(p) for p in part["partitions"])
+            if not covered.issuperset(range(int(self.num_workers))):
+                return False
+        return True
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ intervals with parent↔child links, organized per thread via a
 thread-local context stack and stamped off one monotonic clock
 (``time.perf_counter``).  Finished spans land in a bounded ring buffer
 (old spans fall off; a long-lived service never grows without bound) and
-export as Chrome ``trace_event`` JSON loadable in Perfetto /
-``chrome://tracing`` (the exporter module is not ported yet).
+export as Chrome ``trace_event`` JSON (:mod:`repro_torch.obs.export`)
+loadable in Perfetto / ``chrome://tracing``.
 
 Overhead contract: tracing is **off by default** and the disabled path is
 one module-global load plus one shared no-op object — no allocation, no
@@ -35,7 +35,7 @@ for spawned subprocesses), and the receiving process runs under
 ``perf_counter`` has a per-process epoch, each context also carries a
 wall-clock capture stamp (``captured_unix``) and each process's span
 spill records a (perf, unix) anchor pair — the merge step in
-the exporter rebases every process onto the shared wall
+:mod:`repro_torch.obs.export` rebases every process onto the shared wall
 clock and draws the handoff as a cross-process flow arrow.
 """
 
@@ -415,6 +415,14 @@ def disable() -> Tracer:
 
 def tracing_mode() -> str:
     return TRACER.mode
+
+
+def recording(sp) -> bool:
+    """True when ``sp`` (what :func:`span` returned) is recording.  A span
+    that wraps device work waits for the device before it closes only
+    then (CUDA launches are asynchronous): the untraced path adds no
+    synchronize."""
+    return isinstance(sp, Span)
 
 
 def finished_spans() -> List[Span]:

@@ -73,9 +73,7 @@ class AutopilotConfig:
     # None → follow the store (on iff the store is cluster-backed);
     # True/False force.  When on, the tick drains the store's
     # ClusterHealth signals (lost nodes, stragglers) and answers each with
-    # a priced rebalance decision.  The port has no cluster tier yet: its
-    # stores answer ``is_cluster`` False, so None keeps the phase off, and
-    # True raises.
+    # a priced rebalance decision.
     cluster_actions: Optional[bool] = None
 
 
@@ -121,10 +119,6 @@ class StorageOptimizer:
         self.cost_model = cost_model or WhatIfCostModel()
         self.selector = selector or GreedySelector()
         self.cfg = config or AutopilotConfig()
-        if self.cfg.cluster_actions:
-            raise NotImplementedError(
-                "AutopilotConfig(cluster_actions=True) is not ported to the "
-                "torch package yet (ROADMAP Queue 1 item 4: cluster/)")
         self.mesh = mesh
         self.clock = clock
         self.reports: List[TickReport] = []

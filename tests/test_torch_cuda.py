@@ -679,3 +679,146 @@ def test_cuda_apply_wall_covers_its_device_time(cuda, monkeypatch):
     assert [a.path for a in rep.applied] == ["d2d", "d2d"]
     for a, (start, end) in zip(rep.applied, events):
         assert a.repartition_wall_s * 1e3 >= start.elapsed_time(end)
+
+
+# ---------------------------------------------------------------------------
+# the cluster tier on the card
+# ---------------------------------------------------------------------------
+
+def _cluster_files(root):
+    """Every node part, directory and pointer file of a cluster store as
+    bytes, and every manifest without its timestamps."""
+    import json
+    from pathlib import Path
+    out = {}
+    for f in sorted(Path(root).rglob("*")):
+        rel = str(f.relative_to(root))
+        if not f.is_file() or rel == "catalog.json" \
+                or rel.startswith("telemetry"):
+            continue
+        if f.name.startswith("manifest-"):
+            man = json.loads(f.read_text())
+            man.pop("created_at")
+            for entry in man["generation_log"]:
+                entry.pop("created_at")
+            out[rel] = man
+        else:
+            out[rel] = f.read_bytes()
+    return out
+
+
+def _cluster_pair(tmp_path):
+    """The same keyed and round-robin writes into a device cluster store
+    and its host twin (4 nodes, replication 2)."""
+    from repro_torch.cluster import ClusterConfig
+    rng = np.random.default_rng(11)
+    n = 1 << 18
+    data = {"k": rng.integers(0, 1 << 20, n),
+            "v": rng.normal(size=n).astype(np.float32)}
+    rr = {"x": rng.integers(0, 1000, n // 2).astype(np.int32)}
+    wl = tcore.Workload("w")
+    wl.partition(wl.scan("d")["k"])
+    cand = tcore.enumerate_candidates(wl.graph, "d")[0]
+    roots = {b: str(tmp_path / b) for b in ("device", "host")}
+    for backend, root in roots.items():
+        sess = lachesis_torch.Session(
+            num_workers=32, backend=backend, store_path=root,
+            cluster=ClusterConfig(nodes=("n0", "n1", "n2", "n3"),
+                                  replication=2))
+        sess.write("d", data, cand)
+        sess.write("rr", rr)
+    return roots, wl
+
+
+def test_cuda_cluster_store_write_reopen_rebalance_match_host(cuda,
+                                                             tmp_path):
+    """A device cluster store writes, reopens and rebalances to the same
+    bytes on disk as its host twin, and reads back the same rows."""
+    roots, _wl = _cluster_pair(tmp_path)
+    assert _cluster_files(roots["device"]) == _cluster_files(roots["host"])
+    sessions = {b: lachesis_torch.Session(backend=b, store_path=root)
+                for b, root in roots.items()}
+    results = {b: s.rebalance(add_nodes=("n4",), reason="card")
+               for b, s in sessions.items()}
+    d, h = results["device"], results["host"]
+    assert (d.epoch, d.partitions_moved, d.bytes_moved, d.replica_bytes,
+            d.bytes_linked) == (h.epoch, h.partitions_moved, h.bytes_moved,
+                                h.replica_bytes, h.bytes_linked)
+    assert _cluster_files(roots["device"]) == _cluster_files(roots["host"])
+    for name in ("d", "rr"):
+        got = sessions["device"].read(name).gather()
+        want = sessions["host"].read(name).gather()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_cuda_cluster_reopen_puts_columns_on_the_card(cuda, tmp_path):
+    """After a reopen (and after a node's directory is deleted) the
+    reassembled columns are CUDA tensors, and the first run re-buckets
+    through the kernels on them."""
+    import shutil
+    roots, _wl = _cluster_pair(tmp_path)
+    shutil.rmtree(os.path.join(roots["device"], "nodes", "n1"))
+    sess = lachesis_torch.Session(store_path=roots["device"])
+    host = lachesis_torch.Session(backend="host", store_path=roots["host"])
+    for name in ("d", "rr"):
+        ds = sess.read(name)
+        assert ds.backend == "device"
+        assert all(isinstance(v, torch.Tensor) and v.device.type == "cuda"
+                   for v in ds.columns.values())
+        got, want = ds.gather(), host.read(name).gather()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    wl = tcore.Workload("by-x")
+    wl.aggregate(wl.partition(wl.scan("rr")["x"]), reducer="sum")
+    tk.reset_launches()
+    res = sess.run(wl)
+    torch.cuda.synchronize()
+    assert res.stats.device_repartitions == 1
+    assert tk.LAUNCHES["hash_partition_padded"] == 1
+    assert tk.LAUNCHES["scatter_perm"] == 1
+
+
+def test_cuda_traced_repartition_span_covers_its_cuda_events(
+        cuda, monkeypatch):
+    """With tracing on, ``store.repartition`` closes after the device work
+    it wraps: its span lasts at least as long as the CUDA events around
+    the d2d shuffle inside it."""
+    from repro_torch import obs
+    from repro_torch.data import partition_store as tps
+    from repro_torch.data.partition_store import PartitionStore
+    events = []
+    orig = tps.device_repartition_dataset
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    monkeypatch.setattr(tps, "device_repartition_dataset", timed)
+    rng = np.random.default_rng(5)
+    n = 1 << 22
+    store = PartitionStore(32, backend="device", device="cuda")
+    ds = store.write("d", {"k": rng.integers(0, 1 << 30, n),
+                           "v": rng.normal(size=n).astype(np.float32)})
+    wl = tcore.Workload("w")
+    wl.partition(wl.scan("d")["k"])
+    cand = tcore.enumerate_candidates(wl.graph, "d")[0]
+    obs.clear_spans()
+    obs.enable("full")
+    try:
+        torch.cuda.synchronize()
+        store.repartition(ds, cand, swap=True)
+        (sp,) = [s for s in obs.finished_spans()
+                 if s.name == "store.repartition"]
+        assert sp.args["path"] == "d2d"
+        ((start, end),) = events
+        assert sp.dur_s * 1e3 >= start.elapsed_time(end)
+        writes = [s for s in obs.finished_spans() if s.name == "store.write"]
+        assert writes == []
+    finally:
+        obs.disable()
+        obs.clear_spans()

@@ -492,10 +492,13 @@ def test_store_cluster_and_mesh_surfaces():
     ds = store.write("d", {"k": np.arange(20)})
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         store.repartition(ds, _cand(tsvc, tcore), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tsvc.StorageOptimizer(store, tcore.HistoryStore(),
-                              config=tsvc.AutopilotConfig(
-                                  cluster_actions=True))
+    # cluster actions forced on over a store with no health signals: the
+    # phase runs and finds nothing, as in the reference
+    forced = tsvc.StorageOptimizer(store, tcore.HistoryStore(),
+                                   config=tsvc.AutopilotConfig(
+                                       cluster_actions=True))
+    assert forced._cluster_enabled() is True
+    assert forced.tick().applied == []
     opt = tsvc.StorageOptimizer(store, tcore.HistoryStore())
     assert opt._cluster_enabled() is False
     store.synchronize()                      # a no-op off the card

@@ -379,9 +379,23 @@ def test_in_memory_passthroughs_match_reference(name):
 @pytest.mark.parametrize("call", ["export_trace", "plan_rebalance",
                                   "rebalance"])
 def test_unported_surfaces_name_their_roadmap_item(call):
-    sess = lachesis_torch.Session(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(sess, call)()
+    """The surfaces that once raised, naming ROADMAP Queue 1 item 4, answer
+    as the reference's on a memory-only session: ``export_trace`` returns
+    a Chrome trace document, the rebalance calls refuse a store that is
+    not a cluster store with the reference's error."""
+    ref, port = lachesis.Session(num_workers=4), \
+        lachesis_torch.Session(num_workers=4, device="cpu")
+    if call == "export_trace":
+        want, got = ref.export_trace(), port.export_trace()
+        assert set(got) == set(want)
+        assert got["otherData"]["num_workers"] == 4
+        assert got["otherData"]["session_backend"] == "device"
+        return
+    with pytest.raises(ValueError) as want:
+        getattr(ref, call)()
+    with pytest.raises(ValueError) as got:
+        getattr(port, call)()
+    assert str(got.value) == str(want.value)
 
 
 def _durable_reddit(sess, core):
@@ -445,16 +459,28 @@ def test_durable_passthroughs_match_reference(tmp_path, name):
 
 @pytest.mark.parametrize("tier", ["cluster", "cluster_root"])
 def test_unported_tiers_raise(tmp_path, tier):
-    """``cluster=`` and a root holding a cluster store raise, naming their
-    ROADMAP item; the durable tier (``store_path=``,
-    ``memory_budget_bytes=``) is ported."""
+    """The cluster tier is ported: ``cluster=`` without ``store_path=``,
+    and a root whose ``cluster.json`` names no nodes, raise as in the
+    reference; a root holding a real cluster store opens as one."""
     if tier == "cluster":
-        kw = {"cluster": object()}
+        kws = [{"cluster": pkg.ClusterConfig(nodes=("a", "b"))}
+               for pkg in (lachesis, lachesis_torch)]
+        err = ValueError
     else:
         (tmp_path / "cluster.json").write_text("{}")
-        kw = {"store_path": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        lachesis_torch.Session(device="cpu", **kw)
+        kws = [{"store_path": str(tmp_path)}] * 2
+        err = KeyError
+    with pytest.raises(err) as want:
+        lachesis.Session(**kws[0])
+    with pytest.raises(err) as got:
+        lachesis_torch.Session(device="cpu", **kws[1])
+    assert str(got.value) == str(want.value)
+    root = tmp_path / "real"
+    lachesis.Session(store_path=str(root), num_workers=4,
+                     cluster=lachesis.ClusterConfig(nodes=("a", "b")))
+    sess = lachesis_torch.Session(store_path=str(root), device="cpu")
+    assert sess.store.is_cluster and sess.directory.nodes == ("a", "b")
+    assert sess.num_workers == 4
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -524,6 +550,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert lachesis_torch.Session(
             store_path=root + "/svc", device="cpu").explain_decisions() \
             == svc.explain_decisions()
+        # the cluster tier, the runtime modules and the trace exporter
+        from repro_torch.cluster import ClusterConfig, Rebalancer
+        from repro_torch.obs import (enable, disable, spill_spans,
+                                     write_merged_trace)
+        from repro_torch.obs.export import to_chrome_trace
+        from repro_torch.runtime import elastic, fault_tolerance, straggler
+        enable("full", process="isolated")
+        cl = lachesis_torch.Session(
+            num_workers=4, device="cpu", store_path=root + "/cl",
+            cluster=ClusterConfig(nodes=("a", "b")))
+        cl.write("d", {"k": np.arange(40)})
+        assert cl.rebalance(add_nodes=("c",)).epoch == 1
+        assert Rebalancer(cl.store).plan(remove_nodes=("a",)).moved
+        assert to_chrome_trace()["otherData"]["spans"] > 0
+        spill_spans(root + "/spans", "isolated")
+        assert write_merged_trace(root + "/t.json", root + "/spans")
+        disable()
         # the LM serving slice: configs, kernels, models, serve
         import torch
         from repro_torch.configs import get_config

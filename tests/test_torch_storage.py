@@ -220,12 +220,22 @@ def test_empty_root_opens_empty(tmp_path):
 
 
 def test_cluster_root_is_refused(tmp_path):
-    """A root that holds a cluster store never opens as a single node."""
+    """A root that holds a cluster store never opens as a single node: a
+    ``cluster.json`` that names no nodes is refused as the reference
+    refuses it, and a real one opens as a cluster store."""
+    from repro.data.partition_store import PartitionStore as JStore
     root = tmp_path / "cluster"
     root.mkdir()
     (root / "cluster.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(KeyError) as want:
+        JStore.open(str(root))
+    with pytest.raises(KeyError) as got:
         _open(str(root))
+    assert str(got.value) == str(want.value)
+    (root / "cluster.json").write_text(json.dumps({"nodes": ["a", "b"]}))
+    store = _open(str(root), num_workers=4)
+    assert store.is_cluster and not store.spill("missing")
+    assert store.directory.nodes == ("a", "b")
 
 
 # ---------------------------------------------------------------------------
