@@ -92,7 +92,27 @@ Phases (any failure exits non-zero before the result line):
    (wall against CUDA events), an aggregate over part, and the three
    processes' traces merged and checked as the reference's cluster smoke
    checks them.  It runs in a temporary directory under ``build/`` whose
-   free disk is checked first, and removes it.
+   free disk is checked first, and removes it;
+12. training on the card: (a) the DRL selector — Fig. 12's run (A3C on
+   the trace simulator over ``tpch_like_library()``, 80 epochs of 16
+   transitions, reward before and after over 150 workloads, which must
+   rise), the card agent against a CPU agent from the same weights
+   (forward, one ``train_batch``), and ``DRLSelector`` of each over a
+   q04-like history picking the same candidate; the two kernels'
+   autograd Functions against their plain twins' VJP at one layer's
+   shape; (b) mamba2-370m at full width and depth (bf16, remat),
+   batch 8 × 2048: one loss/backward with every gradient leaf finite and
+   nonzero (and those reaching the loss only through ``ssd_scan``), 10
+   steps on one batch (the loss must fall; step seconds, tokens/s, peak
+   memory, and the share of a step the kernels' backward takes, from
+   torch.profiler), an int8-compressed step's wire bytes, and
+   ``train_with_restarts`` (a failure at step 6 after a checkpoint at 4)
+   against an uninterrupted run; (c) internlm2-1.8b, batch 4 × 2048, the
+   gradient check (``wq``/``wk``/``wv`` only through ``flash_attention``)
+   and 4 steps.  Launches and backward recomputes per step must equal a
+   CPU dry run's (``tests/test_torch_train.py``).  Checkpoints go to a
+   temporary directory under ``build/`` (free disk checked first),
+   removed at the end.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -100,8 +120,10 @@ be the single pass), each of phase 7's serves (flash attention, 24
 launches per prefill), each of phase 8's (SSD scan, 48), phase 9 (the
 hash-partition kernels again, the child's launches added) and each part of
 phase 10 (the hash-partition kernels, counted under a lock across the
-frontend's threads) and each process of phase 11 (the hash-partition
-kernels, equal to the counts a CPU dry run of its steps predicts).
+frontend's threads), each process of phase 11 (the hash-partition
+kernels, equal to the counts a CPU dry run of its steps predicts) and
+phase 12's train steps (each LM's kernel and its backward recomputes,
+per step equal to a CPU dry run's).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -2383,6 +2405,524 @@ def run_cluster():
     return dict(launches)
 
 
+# -- phase 12: training on the card --------------------------------------------
+
+#: Fig. 12's setup (``benchmarks/bench_drl_training.py``): epochs of
+#: transitions, and workloads evaluated before and after
+P12_EPOCHS, P12_BATCH, P12_EVAL = 80, 16, 150
+
+
+def p12_evaluate(agent, sim, n):
+    """Mean greedy reward and mean oracle reward over ``n`` sampled
+    workloads (the benchmark's ``evaluate``)."""
+    tot = opt = 0.0
+    for _ in range(n):
+        wl = sim.sample_workload()
+        s, m = sim.state_of(wl)
+        tot += sim.reward_of(wl, agent.select(s, m, greedy=True))
+        opt += sim.reward_of(wl, sim.best_action(wl))
+    return tot / n, opt / n
+
+
+def p12_fig12(np, env, agent_mod, device, epochs=P12_EPOCHS,
+              batch=P12_BATCH, n_eval=P12_EVAL, seed=0):
+    """Fig. 12: an A3C agent on ``device`` trained on the trace simulator
+    over ``tpch_like_library()``; the reward before and after, the
+    oracle's, the losses and the seconds per epoch."""
+    queries, cfg = env.tpch_like_library()
+    sim = env.TraceSimulator(queries, cfg)
+    agent = agent_mod.A3CAgent(agent_mod.A3CConfig(
+        state_dim=sim.state_dim, num_actions=cfg.num_candidates, seed=seed),
+        device=device)
+    r0, ropt = p12_evaluate(agent, sim, n_eval)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        rows = []
+        for _ in range(batch):
+            wl = sim.sample_workload()
+            s, m = sim.state_of(wl)
+            a = agent.select(s, m)
+            rows.append(agent_mod.Transition(s, a, sim.reward_of(wl, a), m))
+        losses.append(agent.train_batch(rows)[0])
+    epoch_s = (time.perf_counter() - t0) / epochs
+    r1, _ = p12_evaluate(agent, sim, n_eval)
+    return {"reward_before": r0, "reward_after": r1, "oracle": ropt,
+            "losses": losses, "epoch_s": epoch_s, "agent": agent}
+
+
+#: phase 12 (b)-(c): (arch, batch, sequence, steps on one fixed batch);
+#: full width and depth, bf16 as the configs say, remat on
+P12_LM = (("mamba2-370m", 8, 2048, 10), ("internlm2-1.8b", 4, 2048, 4))
+#: one train step's (one loss and backward) launches of the mixer's kernel
+#: and backward recomputes through its plain twin, predicted by a CPU dry
+#: run of the same steps at the same depth with the kernels' Functions on
+#: CPU stand-ins (``tests/test_torch_train.py``): under remat each layer's
+#: forward runs twice (the forward pass, the recompute before its
+#: backward) and its backward once
+P12_LAUNCHES = {"mamba2-370m": {"launches": 96, "recomputes": 48},
+                "internlm2-1.8b": {"launches": 48, "recomputes": 24}}
+#: the restart check: steps, checkpoint every, injected failure at
+P12_RESTART = (8, 4, 6)
+#: the largest difference between the restarted run and an uninterrupted
+#: one, over the losses after the restore and every leaf of the final
+#: state (parameters, moments, step): the restored state is bit-exact and
+#: the batches the same, so they must agree bit for bit
+P12_RESTART_TOL = 0.0
+#: the kernel Functions' gradients against the plain twins' VJP: the
+#: backward *is* that VJP at the same inputs, so this holds only the wiring
+#: (saved inputs, cotangent dtypes); run-to-run reduction order apart, as a
+#: share of the largest gradient entry
+P12_VJP_TOL = 1e-5
+#: the card agent against a CPU agent from the same weights: forward
+#: (float32 GEMMs, TF32 off), then parameters after one train_batch
+P12_AGENT_TOL = (1e-6, 1e-5)
+P12_LR = 3e-4
+#: disk beyond mamba2-370m's three checkpoints (bf16 params and moments)
+P12_SLACK_BYTES = 1 << 30
+
+
+def p12_env(torch, np, device, card):
+    """What the phase-12 LM steps run with: the device, the card's line,
+    and the kernels' counters (launches and backward recomputes)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    mods = {"flash_attention": fa, "ssd_scan": ss}
+
+    def reset():
+        fa.reset_launches()
+        ss.reset_launches()
+
+    def read(kernel):
+        return {"launches": mods[kernel].LAUNCHES[kernel],
+                "recomputes": mods[kernel].RECOMPUTES[kernel]}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    return SimpleNamespace(torch=torch, np=np, device=device, card=card,
+                           reset=reset, read=read, sync=sync)
+
+
+def p12_kernel_only(cfg, grads):
+    """{name: smallest norm over the layers} of the gradient slices that
+    reach the loss only through the mixer's kernel: SSD — ``A_log``,
+    ``dt_bias``, the B, C and dt columns of ``in_proj`` and the B and C
+    channels of the convolution (x also feeds the D skip); attention —
+    ``wq``, ``wk``, ``wv``."""
+    out = {}
+    for layer in grads["layers"]:
+        g = layer["attn"]
+        if cfg.ssd is not None:
+            di, n = cfg.ssd.d_inner, cfg.ssd.state
+            parts = {"A_log": g["A_log"], "dt_bias": g["dt_bias"],
+                     "in_proj[B,C]": g["in_proj"]["w"][:, 2 * di:2 * di + 2 * n],
+                     "in_proj[dt]": g["in_proj"]["w"][:, 2 * di + 2 * n:],
+                     "conv_w[B,C]": g["conv_w"][:, di:],
+                     "conv_b[B,C]": g["conv_b"][di:]}
+        else:
+            parts = {k: g[k]["w"] for k in ("wq", "wk", "wv")}
+        for k, t in parts.items():
+            norm = float(t.float().norm())
+            out[k] = min(out.get(k, norm), norm)
+    return out
+
+
+def p12_recompute_share(torch, step):
+    """The share of one train step's device time spent in the kernels'
+    backward (the plain twins' recompute and VJP), from torch.profiler:
+    the device time under the autograd nodes ``KernelSSDBackward`` and
+    ``KernelAttentionBackward`` over all device time.  (recompute ms, step
+    device ms), or None where the trace shows no such node."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the kernels' own events; a CPU op's self device time repeats them
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA) / 1e3
+    back = [e.device_time_total / 1e3 for e in events
+            if "Kernel" in e.key and "Backward" in e.key
+            and "evaluate_function" in e.key]
+    return (max(back), total) if back and total > 0 else None
+
+
+def p12_lm(env, cfg, arch, batch, seq, n_steps, work, restart=True,
+           int8=True):
+    """Phase 12 (b)/(c) for one LM: the gradient check, ``n_steps`` train
+    steps on one fixed batch (the loss must fall), launches per step held
+    to :data:`P12_LAUNCHES`, one int8-compressed step's wire bytes, and
+    ``train_with_restarts`` against an uninterrupted run.  Returns the
+    numbers it printed."""
+    torch, np = env.torch, env.np
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+
+    dev = env.device
+    kernel = "ssd_scan" if cfg.ssd is not None else "flash_attention"
+    want = P12_LAUNCHES[arch]
+    out = {"arch": arch, "layers": cfg.num_layers}
+    what = f"{arch} B={batch} S={seq} {cfg.param_dtype}"
+    src = TokenSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch))
+    b0 = {k: torch.as_tensor(v, device=dev)
+          for k, v in src.batch_at(0, 0).items()}
+    opt = S.make_optimizer(cfg, peak_lr=P12_LR, total_steps=n_steps)
+    state = S.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                               opt, device=dev)
+
+    # one loss and backward: every leaf's gradient finite and nonzero
+    env.reset()
+    loss, _, grads = S.value_and_grad(cfg, state["params"], b0)
+    counts = env.read(kernel)
+    bad = [tree.path_str(p) for p, g in tree.flatten_with_paths(grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    if bad:
+        raise AssertionError(f"{what}: gradients not finite or all zero: "
+                             f"{bad[:8]} ({len(bad)} leaves)")
+    only = p12_kernel_only(cfg, grads)
+    if min(only.values()) <= 0:
+        raise AssertionError(f"{what}: a gradient reaching the loss only "
+                             f"through {kernel} is zero: {only}")
+    n_leaves = len(tree.leaves(grads))
+    del grads
+    print(f"phase 12: {what}: loss {float(loss):.4f}; all {n_leaves} "
+          f"gradient leaves finite and nonzero; reaching the loss only "
+          f"through {kernel} (smallest norm over {cfg.num_layers} layers): "
+          + ", ".join(f"{k} {v:.4e}" for k, v in only.items())
+          + f"; {kernel} launches {counts['launches']}, backward recomputes "
+          f"{counts['recomputes']} on {env.card}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{what}: one loss/backward counted {counts}, "
+                             f"the dry run predicts {want}")
+    out.update(kernel_only=only, grad_leaves=n_leaves)
+
+    # n_steps train steps on b0: the loss falls; counts per step
+    step = S.make_train_step(cfg, opt)
+    losses, times = [], []
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    env.reset()
+    for _ in range(n_steps):
+        env.sync()
+        t0 = time.perf_counter()
+        state, met = step(state, b0)
+        losses.append(float(met["loss"]))
+        env.sync()
+        times.append(time.perf_counter() - t0)
+    counts = env.read(kernel)
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    step_s = sorted(times[1:])[len(times[1:]) // 2]      # median after warm-up
+    print(f"phase 12: {what}: {n_steps} steps on one batch, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; step_s after a warm-up "
+          f"step {step_s:.4f} (first {times[0]:.4f}, all "
+          f"{[round(t, 4) for t in times]}); tokens/s "
+          f"{batch * seq / step_s:.1f}; max_memory_allocated {peak} B; "
+          f"{kernel} per step {per_step} on {env.card}", flush=True)
+    if per_step != want:
+        raise AssertionError(f"{what}: per step {per_step}, the dry run "
+                             f"predicts {want}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    out.update(losses=losses, step_s=step_s, first_step_s=times[0],
+               tokens_per_s=batch * seq / step_s, peak_bytes=peak,
+               per_step=per_step)
+    if dev == "cuda":
+        share = p12_recompute_share(torch, lambda: step(state, b0))
+        if share is None:
+            print(f"phase 12: {what}: recompute share not measured (no "
+                  "Kernel*Backward node in the trace)", flush=True)
+        else:
+            print(f"phase 12: {what}: torch.profiler, one step: device "
+                  f"{share[1]:.2f} ms, of which the kernels' backward "
+                  f"(plain-twin recompute + VJP) {share[0]:.2f} ms = "
+                  f"{100 * share[0] / share[1]:.1f}% on {env.card}",
+                  flush=True)
+            out["recompute_ms"], out["step_device_ms"] = share
+    del state
+
+    if int8:
+        cstate = S.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), opt,
+            compression="int8", device=dev)
+        p = cstate["params"]
+        n_pre, pat = len(cfg.prefix), len(cfg.pattern)
+        reps = (list(range(n_pre + pat))
+                + list(range(cfg.num_layers - len(cfg.tail_specs),
+                             cfg.num_layers)))
+        ref_leaves = (len(tree.leaves({k: v for k, v in p.items()
+                                       if k != "layers"}))
+                      + sum(len(tree.leaves(p["layers"][i])) for i in reps))
+        numel = sum(t.numel() for t in tree.leaves(p))
+        formula = numel + 4 * ref_leaves
+        _, met = S.make_train_step(cfg, opt, compression="int8")(cstate, b0)
+        del cstate
+        print(f"phase 12: {what}: int8-compressed step loss "
+              f"{float(met['loss']):.4f}, wire_bytes {met['wire_bytes']} = "
+              f"{numel} + 4 x {ref_leaves} stacked leaves (the reference's "
+              f"formula: {formula})", flush=True)
+        if met["wire_bytes"] != formula:
+            raise AssertionError(f"{what}: wire_bytes {met['wire_bytes']} "
+                                 f"!= {formula}")
+        out["wire_bytes"] = formula
+
+    if restart:
+        total, every, fail_at = P12_RESTART
+        ck = Path(work) / f"ckpt-{arch}"
+        run = dict(cfg=cfg, total_steps=total, global_batch=batch,
+                   seq_len=seq, ckpt_every=every, device=dev, log_every=100,
+                   peak_lr=P12_LR)
+        t0 = time.perf_counter()
+        got = TR.train_with_restarts(TR.TrainRun(**run, ckpt_dir=str(ck),
+                                                 fail_at_step=fail_at))
+        restart_s = time.perf_counter() - t0
+        got_state = [t.cpu() for t in tree.leaves(got.pop("state"))]
+        clean = TR.train(TR.TrainRun(**run))
+        clean_state = [t.cpu() for t in tree.leaves(clean.pop("state"))]
+        expect = [(s, int(src.batch_at(s, 0)["tokens"].sum()))
+                  for s in range(every, total)]
+        diff = max(abs(a - b) for a, b in zip(got["losses"],
+                                              clean["losses"][every:]))
+        state_diff = max(float((a.double() - b.double()).abs().max())
+                         for a, b in zip(got_state, clean_state))
+        print(f"phase 12: {what}: train_with_restarts {total} steps, "
+              f"checkpoint every {every}, failure injected at step "
+              f"{fail_at}: restored step {got['start_step']}, then took "
+              f"steps {[s for s, _ in got['taken']]} once each (token sums "
+              f"{[t for _, t in got['taken']]}, TokenSource.batch_at's "
+              f"{[t for _, t in expect]}); final loss "
+              f"{got['losses'][-1]:.6f} vs an uninterrupted run's "
+              f"{clean['losses'][-1]:.6f}; largest |diff| over the "
+              f"{len(got['losses'])} losses after the restore {diff:.3e}, "
+              f"over the {len(got_state)} leaves of the final state "
+              f"{state_diff:.3e} (limit {P12_RESTART_TOL}); {restart_s:.1f} "
+              f"s with the restart and checkpoints on {env.card}", flush=True)
+        if got["start_step"] != every or got["taken"] != expect:
+            raise AssertionError(f"{what}: the restart resumed at "
+                                 f"{got['start_step']} with {got['taken']}")
+        if len(got_state) != len(clean_state) or len(got["losses"]) != \
+                total - every:
+            raise AssertionError(f"{what}: the restarted run's state or "
+                                 "losses do not line up with the "
+                                 "uninterrupted run's")
+        if not max(diff, state_diff) <= P12_RESTART_TOL:
+            raise AssertionError(f"{what}: the restarted run differs from "
+                                 f"an uninterrupted one: losses by {diff}, "
+                                 f"the final state by {state_diff}")
+        del got_state, clean_state
+        out.update(restart_loss_diff=diff, restart_state_diff=state_diff,
+                   restart_s=restart_s)
+    return out
+
+
+#: one layer's kernel shapes in phase 12's models: SSD (B, T, H, P, N,
+#: chunk) of mamba2-370m at batch 8 × 2048; attention (B, H, KV, S, hd) of
+#: internlm2-1.8b at batch 4 × 2048
+P12_VJP_SHAPES = {"ssd_scan": (8, 2048, 32, 64, 128, 256),
+                  "flash_attention": (4, 16, 8, 2048, 128)}
+
+
+def p12_vjp(torch, kernel, gen):
+    """A kernel Function at one layer's shape of the phase's model (bf16;
+    on ``gen``'s device): its forward (the kernel) held against the plain
+    twin as phases 5 and 6 hold it — the reference's allclose and relative
+    RMS <= RMS_LIMIT on every output — then its gradient against the
+    twin's VJP.  Returns ({output: max abs err}, {output: relative RMS},
+    {input: max gradient difference / max |grad|})."""
+    dev = gen.device
+    shape = P12_VJP_SHAPES[kernel]
+    if kernel == "ssd_scan":
+        from repro_torch.kernels.ssd_scan import ops, ref
+        B, T, H, P, N, L = shape
+        ins = ssd_inputs(torch, gen, B, T, H, P, N, torch.bfloat16)
+        fn = lambda *a: ops.KernelSSD.apply(*a, L)        # noqa: E731
+        twin = lambda *a: ref.ssd_ref(*a, L)              # noqa: E731
+        names, outputs, tol = ("x", "dt", "A", "B", "C"), ("y", "state"), \
+            TOL["bfloat16"][1]
+    else:
+        from repro_torch.kernels.flash_attention import ops, ref
+        B, H, KV, S, hd = shape
+        ins = [torch.randn(shp, generator=gen, device=dev
+                           ).to(torch.bfloat16).transpose(1, 2)
+               for shp in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+        fn = lambda *a: (ops.KernelAttention.apply(  # noqa: E731
+            *a, True, None, 0.0, None),)
+        twin = lambda *a: (ref.attention_ref(*a),)     # noqa: E731
+        names, outputs, tol = ("q", "k", "v"), ("out",), TOL["bfloat16"][0]
+    ins = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    plain = twin(*ins)
+    errs, rms = {}, {}
+    for name, o, w in zip(outputs, outs, plain):
+        if o.grad_fn is None:
+            raise AssertionError(f"{kernel}: output {name} of its Function "
+                                 "has no grad_fn")
+        errs[name] = check_close(torch, o.detach(), w.detach(), tol,
+                                 f"{kernel} {name} at {shape}")
+        rms[name] = rel_rms(torch, o.detach(), w.detach())
+        if not rms[name] <= RMS_LIMIT:
+            raise AssertionError(f"{kernel} {name} at {shape}: relative RMS "
+                                 f"error {rms[name]} above {RMS_LIMIT}")
+    cots = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+            for o in outs]
+    got = torch.autograd.grad(outs, ins, cots)
+    want = torch.autograd.grad(plain, ins, cots)
+    grads = {}
+    for name, g, w in zip(names, got, want):
+        scale = float(w.float().abs().max())
+        grads[name] = float((g.float() - w.float()).abs().max()) / max(
+            scale, 1e-30)
+        if not bool(torch.isfinite(g).all()) or scale == 0:
+            raise AssertionError(f"{kernel}: gradient of {name} not finite "
+                                 "or zero")
+    if max(grads.values()) > P12_VJP_TOL:
+        raise AssertionError(f"{kernel}: Function gradient vs the plain "
+                             f"twin's VJP: {grads} (limit {P12_VJP_TOL})")
+    return errs, rms, grads
+
+
+def p12_agents(np, torch, drl_env, agent_mod, fig, card):
+    """The card agent against a CPU agent holding the same weights: the
+    forward pass (unmasked logits and values), then one ``train_batch``
+    on the same transitions."""
+    queries, cfg = drl_env.tpch_like_library(seed=11)
+    sim = drl_env.TraceSimulator(queries, cfg)
+    cpu = agent_mod.A3CAgent(fig["agent"].cfg, device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in
+                             fig["agent"].net.state_dict().items()})
+    probe = agent_mod.A3CAgent(fig["agent"].cfg, device="cuda")
+    probe.net.load_state_dict(fig["agent"].net.state_dict())
+    rows = []
+    for _ in range(16):
+        wl = sim.sample_workload()
+        s, m = sim.state_of(wl)
+        a = int(np.flatnonzero(m)[0])
+        rows.append(agent_mod.Transition(s, a, sim.reward_of(wl, a), m))
+    st = torch.from_numpy(np.stack([r.state for r in rows]))
+    with torch.no_grad():
+        lc, vc = cpu.net(st)
+        lg, vg = probe.net(st.cuda())
+    fwd = max(float((lg.cpu() - lc).abs().max() / lc.abs().max()),
+              float((vg.cpu() - vc).abs().max() / vc.abs().max()))
+    lcpu, _ = cpu.train_batch(rows)
+    lgpu, _ = probe.train_batch(rows)
+    par = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for a, b in zip(probe.params, cpu.params))
+    print(f"phase 12: (a) card agent vs a CPU agent from the same weights: "
+          f"forward max rel err {fwd:.3e} (limit {P12_AGENT_TOL[0]}); one "
+          f"train_batch loss {lgpu:.6f} vs {lcpu:.6f}, params max abs err "
+          f"{par:.3e} (limit {P12_AGENT_TOL[1]}) on {card}", flush=True)
+    if fwd > P12_AGENT_TOL[0] or par > P12_AGENT_TOL[1]:
+        raise AssertionError("the card agent disagrees with the CPU agent")
+    return cpu
+
+
+def p12_decide(np, lt, tcore, HistoryStore, card_agent, cpu_agent, card):
+    """``partitioning_creation`` over a q04-like history (phase 9's helper,
+    TPC-H SF 0.01, on the card with the device backend) with
+    ``DRLSelector`` of each agent: the same action."""
+    import tempfile
+    orders, lineitem, _part = tpch_tables(np, 0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = p9_history(np, lt, tcore, HistoryStore, "device",
+                          str(Path(tmp) / "history.jsonl"),
+                          {"orders": orders, "lineitem": lineitem})
+        loader = p9_loader(lt.Workload)
+        decs = [tcore.partitioning_creation(
+            loader, "lineitem", hist, selector=tcore.DRLSelector(agent),
+            dataset_bytes=float(sum(v.nbytes for v in lineitem.values())),
+            now=1000.0) for agent in (card_agent, cpu_agent)]
+    acts = [d.action_index for d in decs]
+    print(f"phase 12: (a) DRLSelector over a q04-like history "
+          f"({len(decs[0].features)} candidates): card agent action "
+          f"{acts[0]} ({decs[0].candidate.signature()}), CPU agent action "
+          f"{acts[1]} on {card}", flush=True)
+    if acts[0] != acts[1] or not np.array_equal(decs[0].state,
+                                                decs[1].state):
+        raise AssertionError(f"the DRL selectors disagree: {acts}")
+    return acts[0]
+
+
+def run_training(torch, np, lt, tcore, card):
+    """Phase 12 on the card: (a) the DRL selector (Fig. 12, the card agent
+    against a CPU agent, the advisor's decision); (b)-(c) the LMs'
+    training.  Returns each LM's kernel launches over its main path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.drl import agent as agent_mod
+    from repro_torch.core.drl import env as drl_env
+    from repro_torch.core.history import HistoryStore
+
+    # float32 GEMMs in full float32 (the agent's parity with the CPU)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    fig = p12_fig12(np, drl_env, agent_mod, "cuda")
+    print(f"phase 12: (a) Fig. 12 on the card: {P12_EPOCHS} epochs of "
+          f"{P12_BATCH} transitions, reward {fig['reward_before']:.4f} -> "
+          f"{fig['reward_after']:.4f} (oracle {fig['oracle']:.4f}), loss "
+          f"{fig['losses'][0]:.4f} -> {fig['losses'][-1]:.4f}, "
+          f"{fig['epoch_s']:.4f} s per epoch on {card}", flush=True)
+    if not fig["reward_after"] > fig["reward_before"]:
+        raise AssertionError("DRL training must improve the policy")
+    cpu_agent = p12_agents(np, torch, drl_env, agent_mod, fig, card)
+    p12_decide(np, lt, tcore, HistoryStore, fig["agent"], cpu_agent, card)
+    print(f"phase 12: (a) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for kernel in ("ssd_scan", "flash_attention"):
+        errs, rms, grads = p12_vjp(torch, kernel, gen)
+        print(f"phase 12: {kernel} Function at one layer's shape "
+              f"{P12_VJP_SHAPES[kernel]} (bf16): forward (the kernel) vs the "
+              f"plain twin: "
+              + ", ".join(f"{k} max_abs_err {errs[k]:.3e} rel_rms "
+                          f"{rms[k]:.3e}" for k in errs)
+              + f" (limits atol=rtol {TOL['bfloat16'][kernel == 'ssd_scan']}"
+              f", rel_rms {RMS_LIMIT}); gradient vs the twin's VJP, max abs "
+              f"err / max |grad| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+              + f" (limit {P12_VJP_TOL}) on {card}", flush=True)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    need = 3 * 3 * 2 * 368_000_000 + P12_SLACK_BYTES
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise AssertionError(f"phase 12 needs {need} B of free disk under "
+                             f"{build}, and {free} B are free")
+    env = p12_env(torch, np, "cuda", card)
+    launches = {}
+    tmp = Path(tempfile.mkdtemp(prefix="phase12-", dir=build))
+    try:
+        for arch, batch, seq, n_steps in P12_LM:
+            tl = time.perf_counter()
+            cfg = get_config(arch)
+            mamba = cfg.ssd is not None
+            out = p12_lm(env, cfg, arch, batch, seq, n_steps, tmp,
+                         restart=mamba, int8=mamba)
+            kernel = "ssd_scan" if mamba else "flash_attention"
+            launches[kernel] = int(out["per_step"]["launches"] * n_steps)
+            print(f"phase 12: {arch} done in {time.perf_counter() - tl:.1f} "
+                  "s", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2506,6 +3046,15 @@ def main() -> int:
         launches[k] += phase11[k]
     print(f"phase 11: done in {time.perf_counter() - t11:.1f} s on {card}; "
           f"launches {phase11}", flush=True)
+
+    t12 = time.perf_counter()
+    phase12 = run_training(torch, np, lt, tcore, card)
+    for k, v in phase12.items():
+        if v == 0:
+            return fail(f"phase 12 never launched {k}")
+        launches[k] += v
+    print(f"phase 12: done in {time.perf_counter() - t12:.1f} s on {card}; "
+          f"launches over the LMs' train steps {phase12}", flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

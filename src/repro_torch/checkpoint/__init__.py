@@ -1,0 +1,1 @@
+"""Atomic step checkpoints in the JAX package's on-disk layout."""

@@ -76,9 +76,9 @@ class GreedySelector:
 
 
 class DRLSelector:
-    """Wraps an actor-critic agent (paper §3.1.3): any object with
-    ``cfg.num_actions`` and ``select(state, mask, greedy=)``.  The agent
-    itself is not ported yet (ROADMAP Queue 1 item 5)."""
+    """Wraps an :class:`~repro_torch.core.drl.agent.A3CAgent` (paper
+    §3.1.3), or any object with ``cfg.num_actions`` and ``select(state,
+    mask, greedy=)``."""
 
     def __init__(self, agent, greedy: bool = True):
         self.agent = agent

@@ -53,8 +53,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.backends import resolve_device
-from ..core.ir import to_numpy
 from ..kernels.hash_partition.ops import (padded_partition_ids,
                                           partition_ids, scatter_permutation)
 from ..kernels.hash_partition.ref import wang_hash
@@ -63,6 +61,21 @@ from ..obs.tracer import span as _span
 from .capacity import CapacityMap, bucket_capacity, valid_slot_index
 
 Columns = Dict[str, Any]
+
+
+# ``core``'s package imports the planner, the store and through it this
+# module, so its two helpers are imported at the call: importing this
+# module first then works, as the reference's does.
+
+def resolve_device(device) -> torch.device:
+    from ..core.backends import resolve_device as resolve
+    return resolve(device)
+
+
+def to_numpy(v) -> np.ndarray:
+    from ..core.ir import to_numpy as convert
+    return convert(v)
+
 
 MODES = ("fused", "hostperm")
 

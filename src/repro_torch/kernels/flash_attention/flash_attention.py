@@ -37,10 +37,13 @@ MAX_DIM = 2 ** 31 - 1
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: backward passes since the last :func:`reset_launches`, each one the
+#: plain twin's VJP recomputed from the saved inputs (:mod:`.ops`)
+RECOMPUTES: Dict[str, int] = {"flash_attention": 0}
 
 
 def reset_launches() -> None:
-    reset_counts(LAUNCHES)
+    reset_counts(LAUNCHES, RECOMPUTES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -35,10 +35,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+#: backward passes since the last :func:`reset_launches`, each one the
+#: plain twin's VJP recomputed from the saved inputs (:mod:`.ops`)
+RECOMPUTES: Dict[str, int] = {"ssd_scan": 0}
 
 
 def reset_launches() -> None:
-    reset_counts(LAUNCHES)
+    reset_counts(LAUNCHES, RECOMPUTES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -7,7 +7,11 @@ per layer in ``params["layers"]`` (execution order: prefix, groups × pattern,
 tail) and loops over them in Python; caches are a list in the same order.
 Three modes share the layer dispatcher:
 
-* ``train``   — full-sequence forward, no caches;
+* ``train``   — full-sequence forward, no caches; with ``cfg.remat`` and
+  gradients on, each layer runs under ``torch.utils.checkpoint``
+  (non-reentrant) and is recomputed in the backward pass, where the
+  reference wraps each scanned group of the pattern in ``jax.checkpoint``
+  (the same values; only what is kept between the passes differs);
 * ``prefill`` — full-sequence forward that also emits the decode cache;
 * ``decode``  — single-token step updating the cache (in place).
 
@@ -24,6 +28,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from . import layers as L
@@ -225,14 +230,25 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(start, start + S, device=tokens.device)[None, :]
     x = _embed_tokens(cfg, params, tokens)
     new_cache = [] if mode != "train" else None
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, spec in enumerate(cfg.all_specs):
+        p = params["layers"][i]
+        if remat:
+            # the layers draw no random numbers: no RNG state to replay
+            x = checkpoint(_train_layer, cfg, spec, p, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         c = cache[i] if cache is not None else None
-        x, nc = _apply_layer(cfg, spec, params["layers"][i], x,
-                             positions=positions, mode=mode, cache=c,
-                             cache_pos=cache_pos)
+        x, nc = _apply_layer(cfg, spec, p, x, positions=positions,
+                             mode=mode, cache=c, cache_pos=cache_pos)
         if new_cache is not None:
             new_cache.append(nc)
     return x, new_cache
+
+
+def _train_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, positions):
+    return _apply_layer(cfg, spec, p, x, positions=positions,
+                        mode="train")[0]
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -246,6 +262,17 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 # ===========================================================================
 # Public step functions
 # ===========================================================================
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``:
+    (B, S)) → (total, {"ce", "moe_aux"}); no ported mixer has an auxiliary
+    loss, so ``moe_aux`` is 0 and total is ce."""
+    logits, _ = forward(cfg, params, batch["tokens"], mode="train")
+    ce = L.cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "moe_aux": aux}
+
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             cache_len: Optional[int] = None):

@@ -822,3 +822,126 @@ def test_cuda_traced_repartition_span_covers_its_cuda_events(
     finally:
         obs.disable()
         obs.clear_spans()
+
+
+# -- the training slice: gradients through the kernels, the A3C agent -----------
+
+from repro_torch import tree  # noqa: E402
+from repro_torch.core.drl import agent as drl_agent  # noqa: E402
+from repro_torch.core.drl import env as drl_env  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
+from repro_torch.launch import steps as TS  # noqa: E402
+
+
+def _vjp_close(got, want):
+    """The Function's backward recomputes the plain twin at the same
+    inputs: the same computation, so only a run-to-run reduction order
+    could separate them."""
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and bool(b.abs().max() > 0)
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_gradient_is_the_twins_vjp(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ins = [torch.randn(shape, generator=g, device=cuda).to(dtype)
+           .requires_grad_() for shape in ((2, 4, 80, 32), (2, 2, 80, 32),
+                                           (2, 2, 80, 32))]
+    fa.reset_launches()
+    out = fa_ops.attention(*ins, causal=True, window=24)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    got = torch.autograd.grad(out, ins, cot)
+    want = torch.autograd.grad(attention_ref(*ins, causal=True, window=24),
+                               ins, cot)
+    _vjp_close(got, want)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.RECOMPUTES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_scan_gradient_is_the_twins_vjp(cuda, dtype):
+    ins = [t.detach().requires_grad_()
+           for t in _ssd_inputs(cuda, 2, 64, 3, 16, 16, dtype)]
+    ss.reset_launches()
+    y, h = ss_ops.ssd(*ins, chunk=32)
+    assert y.grad_fn is not None and h.grad_fn is not None
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cots = [torch.randn(t.shape, generator=g, device=cuda).to(t.dtype)
+            for t in (y, h)]
+    got = torch.autograd.grad((y, h), ins, cots)
+    want = torch.autograd.grad(ssd_ref(*ins, 32), ins, cots)
+    _vjp_close(got, want)
+    assert (ss.LAUNCHES["ssd_scan"], ss.RECOMPUTES["ssd_scan"]) == (1, 1)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+def test_cuda_train_forward_gives_kernel_only_leaves_gradients(cuda, arch):
+    """A CUDA ``forward(mode="train")`` through the kernels: ``wq`` (only
+    through flash attention) and ``A_log`` (only through the SSD scan)
+    get nonzero gradients, every leaf's gradient is close to the same
+    weights' on the CPU (float32: the kernels' forward within 3e-5 and
+    1e-4 of the twins'), and each layer launched its kernel twice under
+    remat with one backward recompute."""
+    import dataclasses
+    cfg = reduced(get_config(arch))
+    if cfg.ssd is None:
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 48))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)),
+             "labels": torch.from_numpy(np.roll(tokens, -1, 1))}
+    _, _, want = TS.value_and_grad(cfg, params, batch)
+    fa.reset_launches()
+    ss.reset_launches()
+    loss, _, got = TS.value_and_grad(
+        cfg, _to_device(params, cuda),
+        {k: v.to(cuda) for k, v in batch.items()})
+    assert bool(torch.isfinite(loss))
+    key = "A_log" if cfg.ssd else "wq"
+    for layer in got["layers"]:
+        leaf = layer["attn"][key]
+        leaf = leaf if cfg.ssd else leaf["w"]
+        assert bool(leaf.abs().sum() > 0)
+    for (p, a), b in zip(tree.flatten_with_paths(got), tree.leaves(want)):
+        a = a.cpu()
+        assert bool(torch.isfinite(a).all()), p
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        assert rel <= 1e-3, (p, rel)
+    mod, name = (ss, "ssd_scan") if cfg.ssd else (fa, "flash_attention")
+    assert (mod.LAUNCHES[name], mod.RECOMPUTES[name]) == \
+        (2 * cfg.num_layers, cfg.num_layers)
+
+
+def test_cuda_agent_matches_a_cpu_agent(cuda):
+    queries, scfg = drl_env.tpch_like_library()
+    sim = drl_env.TraceSimulator(queries, scfg)
+    acfg = drl_agent.A3CConfig(state_dim=sim.state_dim,
+                               num_actions=scfg.num_candidates, seed=3)
+    card = drl_agent.A3CAgent(acfg)               # the card by default
+    cpu = drl_agent.A3CAgent(acfg, device="cpu")
+    assert card.device.type == "cuda"
+    for a, b in zip(card.params, cpu.params):      # seeded on the CPU
+        assert torch.equal(a.cpu(), b)
+    rows = []
+    for _ in range(16):
+        wl = sim.sample_workload()
+        s, m = sim.state_of(wl)
+        a = int(np.flatnonzero(m)[-1])
+        rows.append(drl_agent.Transition(s, a, sim.reward_of(wl, a), m))
+    st = torch.from_numpy(np.stack([r.state for r in rows]))
+    with torch.no_grad():       # float32 GEMMs, summed in other orders
+        for x, y in zip(card.net(st.to(cuda)), cpu.net(st)):
+            assert float((x.cpu() - y).abs().max()) <= \
+                1e-6 * float(y.abs().max())
+    for r in rows:
+        assert card.select(r.state, r.mask, greedy=True) == \
+            cpu.select(r.state, r.mask, greedy=True)
+    lg, _ = card.train_batch(rows)
+    lc, _ = cpu.train_batch(rows)
+    assert abs(lg - lc) <= 1e-5 * max(1.0, abs(lc))
+    for a, b in zip(card.params, cpu.params):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)

@@ -288,3 +288,27 @@ def test_import_layout_validates_shapes():
     with pytest.raises(ValueError, match="slots"):
         import_layout({"a": np.zeros(5)}, np.array([1, 1]), None,
                       capacity_map=CapacityMap.of([2, 2]), device="cpu")
+
+
+@pytest.mark.parametrize("module", ["data.device_repartition",
+                                    "data.partition_store"])
+def test_first_import_behaves_as_the_reference(module):
+    """A module as a process's first import: ``data.device_repartition``
+    imports in both packages (the port once failed on a circular import
+    through ``core``); ``data.partition_store`` fails in both alike (its
+    planner import comes back to it), so the port matches the reference
+    there too."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {"PYTHONPATH": src, "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    rcs = {}
+    for pkg in ("repro_torch", "repro"):
+        out = subprocess.run([sys.executable, "-c", f"import {pkg}.{module}"],
+                             capture_output=True, text=True, timeout=120,
+                             env=env)
+        rcs[pkg] = out.returncode
+    assert rcs["repro_torch"] == rcs["repro"], rcs
+    if module == "data.device_repartition":
+        assert rcs["repro_torch"] == 0

@@ -582,6 +582,42 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             gen, _ = serve.serve_batch(cfg, params, np.zeros((1, 8), np.int32),
                                        2, device="cpu")
             assert gen.shape == (1, 2)
+        # the training slice: DRL selector, optimizer, checkpoints, the
+        # token pipeline, train steps and the driver
+        from repro_torch.core.drl import (A3CAgent, A3CConfig, Transition,
+                                          TraceSimulator, tpch_like_library)
+        from repro_torch.core import DRLSelector
+        from repro_torch.optimizer import adamw, compression, schedule
+        from repro_torch.checkpoint import checkpoint
+        from repro_torch.data import pipeline
+        from repro_torch.launch import steps, train
+        from repro_torch import tree
+        queries, scfg = tpch_like_library()
+        sim = TraceSimulator(queries, scfg)
+        agent = A3CAgent(A3CConfig(state_dim=sim.state_dim,
+                                   num_actions=scfg.num_candidates),
+                         device="cpu")
+        wl_ = sim.sample_workload()
+        st_, mk_ = sim.state_of(wl_)
+        agent.train_batch([Transition(st_, agent.select(st_, mk_),
+                                      sim.reward_of(wl_, 0), mk_)] * 4)
+        out = train.train_with_restarts(train.TrainRun(
+            cfg=reduced(get_config("mamba2-370m")), total_steps=3,
+            global_batch=2, seq_len=16, ckpt_dir=root + "/ck",
+            ckpt_every=2, fail_at_step=2, device="cpu"))
+        assert out["start_step"] == 2 and len(tree.leaves(out["state"]))
+        assert checkpoint.latest_step(root + "/ck") == 3
+        assert pipeline.TokenSource(pipeline.DataConfig(
+            vocab_size=10, seq_len=4, global_batch=2)).batch_at(0, 0)
+        rcfg = reduced(get_config("internlm2-1.8b"))
+        opt = adamw.AdamW(lr=schedule.warmup_cosine(1e-3, 2, 10))
+        st = steps.init_train_state(rcfg, torch.Generator().manual_seed(0),
+                                    opt, compression="int8", device="cpu")
+        tok = torch.zeros((2, 16), dtype=torch.int32)
+        st, met = steps.make_train_step(rcfg, opt, compression="int8")(
+            st, {"tokens": tok, "labels": tok})
+        assert met["wire_bytes"] > 0 and isinstance(
+            st["ef"], compression.ErrorFeedbackState)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "lachesis"))

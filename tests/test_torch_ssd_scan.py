@@ -105,6 +105,46 @@ def test_state_feeds_decode():
     np.testing.assert_allclose(st2.numpy(), st_t.numpy(), atol=1e-5)
 
 
+@pytest.mark.parametrize("per", [1, 3])
+def test_plain_version_carries_the_state_across_blocks(monkeypatch, per):
+    """``ssd_ref`` split into blocks of ``per`` chunks (8 chunks: every
+    chunk its own block, or blocks of 3, 3 and a partial 2), from a
+    carried-in state: y, the final state and the VJP of both with respect
+    to every input and the initial state equal the JAX package's
+    ``ssd_scan_ref`` within 1e-5."""
+    import jax
+
+    from repro.models.ssd import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ref as tref
+    B, T, H, P, N, chunk = 1, 128, 2, 16, 32, 16
+    monkeypatch.setattr(tref, "BLOCK_ELEMS", per * B * H * chunk * chunk)
+    blocks = []
+    segsum = tref._segsum
+    monkeypatch.setattr(tref, "_segsum",
+                        lambda a: blocks.append(a.shape[1]) or segsum(a))
+    arrays = _inputs(B, T, H, P, N, seed=3)
+    rng = np.random.default_rng(4)
+    h0 = (rng.standard_normal((B, H, P, N)) * 0.5).astype(np.float32)
+    cy = rng.standard_normal((B, T, H, P)).astype(np.float32)
+    cst = rng.standard_normal((B, H, P, N)).astype(np.float32)
+
+    ins = [torch.from_numpy(a).requires_grad_() for a in (*arrays, h0)]
+    y, st = tref.ssd_ref(*ins[:5], chunk, init_state=ins[5])
+    grads = torch.autograd.grad((y, st), ins,
+                                (torch.from_numpy(cy), torch.from_numpy(cst)))
+    assert blocks == ([1] * 8 if per == 1 else [3, 3, 2])
+
+    (jy, jst), vjp = jax.vjp(
+        lambda x, dt, A, Bm, Cm, h: ssd_scan_ref(x, dt, A, Bm, Cm, chunk, h),
+        *[jnp.asarray(a) for a in (*arrays, h0)])
+    jgrads = vjp((jnp.asarray(cy), jnp.asarray(cst)))
+    for name, got, want in (("y", y, jy), ("state", st, jst),
+                            *zip(("dx", "ddt", "dA", "dB", "dC", "dh0"),
+                                 grads, jgrads)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("dims,chunk,match", [
     ((1, 48, 2, 16, 32), 16, "CUDA"),          # valid shapes, CPU tensors
     ((1, 40, 2, 16, 32), 16, "multiple of chunk"),
