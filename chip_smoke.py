@@ -112,7 +112,29 @@ Phases (any failure exits non-zero before the result line):
    and 4 steps.  Launches and backward recomputes per step must equal a
    CPU dry run's (``tests/test_torch_train.py``).  Checkpoints go to a
    temporary directory under ``build/`` (free disk checked first),
-   removed at the end.
+   removed at the end;
+13. mesh placement and the MoE and MLA layers: (a) phase 4's SF-10
+   lineitem written again, repartitioned d2d onto a one-device ``Mesh`` on
+   the card (``repartition(mesh=)``) and once more through
+   ``apply_decision(mesh=)``: both layouts bit-equal to phase 4's host
+   backend, every column on the card and placed as ``sharding_for`` says,
+   the hash kernels launched as phase 4's write and two repartitions; the
+   flash-attention kernel through MLA's padded route (q·k 128 + 64 and v
+   128 in 256-wide buffers) at deepseek-v2's prefill shape in float32 and
+   bf16, held to the plain twin on batch row 0's first 16 heads, timed
+   beside SDPA on the padded tensors; then ``serve_batch`` (batch 8, prompt
+   4096, 32 tokens, seeded random weights, full width, depth cut) for
+   (b) deepseek-v2-236b with 3 layers (the dense MLA prefix layer and 2
+   MoE layers; 9.33 B parameters) in bf16 and float32, (c)
+   llama4-maverick-400b-a17b with 4 layers (one period: local/dense,
+   local/MoE, local/dense, global NoPE/MoE; 35.04 B parameters, 70.1 GB,
+   bf16 only: float32 would take 140 GB) and (d) chameleon-34b with 2
+   layers in bf16: flash launched once per layer in the prefill, the MoE
+   drop fractions at the configured capacity factor 1.25 printed, and
+   decode logits against a prefill over the same tokens with a capacity
+   factor of E / top_k, where nothing drops (batch 2 × 1024 for
+   deepseek-v2, 2 × 512 for llama4, 8 × 4096 for chameleon; phase 7's
+   limits).
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -123,7 +145,9 @@ phase 10 (the hash-partition kernels, counted under a lock across the
 frontend's threads), each process of phase 11 (the hash-partition
 kernels, equal to the counts a CPU dry run of its steps predicts) and
 phase 12's train steps (each LM's kernel and its backward recomputes,
-per step equal to a CPU dry run's).
+per step equal to a CPU dry run's), phase 13 (a) (the hash-partition
+kernels) and each of phase 13's serves (flash attention, once per layer in
+the prefill).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -488,8 +512,24 @@ def run_tpch(torch, np, lt, tcore, TableVal):
 
 # -- phase 4: SF 10 write and device-to-device repartition ---------------------
 
-def run_sf10(torch, np, lt, tcore, export_layout):
-    """Returns the SF-10 lineitem columns (phase 9 stores them again)."""
+def same_layout(np, got, want, what):
+    """Two ``export_layout``s equal bit for bit: counts, and every column's
+    dtype, shape and bits."""
+    if not np.array_equal(got["counts"], want["counts"]):
+        raise AssertionError(f"{what}: counts differ from the host backend's")
+    for k, col in want["columns"].items():
+        g = got["columns"][k]
+        if g.dtype != col.dtype or g.shape != col.shape \
+                or not np.array_equal(g, col):
+            raise AssertionError(f"{what}: column {k} differs from the host "
+                                 "backend's")
+
+
+def run_sf10(torch, np, lt, tcore, export_layout, hp):
+    """Returns the SF-10 lineitem columns (phases 9 and 13 store them
+    again), the host backend's repartitioned layout and the device
+    backend's hash-kernel launches per step (phase 13 (a) holds its own to
+    both)."""
     rng = np.random.default_rng(10)
     n_orders, n_parts = SF10_ORDERS, 2_000_000
     lineitem = {"orderkey": rng.integers(0, n_orders, SF10_LINES),
@@ -502,18 +542,22 @@ def run_sf10(torch, np, lt, tcore, export_layout):
     wl.partition(li["orderkey"])
     wl.partition(li["partkey"])
     by_order, by_part = tcore.enumerate_candidates(wl.graph, "lineitem")
-    layouts = {}
+    layouts, steps = {}, {}
     for backend in ("device", "host"):
         sess = lt.Session(num_workers=M, backend=backend)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        n0 = Counter(hp.LAUNCHES)
         t0 = time.perf_counter()
         written = sess.write("lineitem", lineitem, by_order)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        n1 = Counter(hp.LAUNCHES)
         moved_ds, moved = sess.repartition("lineitem", by_part)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        if backend == "device":
+            steps = {"write": n1 - n0, "repartition": Counter(hp.LAUNCHES) - n1}
         print(f"phase 4: backend={backend} {SF10_LINES} rows "
               f"({flat_gb:.2f} GB flat): write_s={t1 - t0:.4f} "
               f"repartition_s={t2 - t1:.4f} moved_bytes={moved} "
@@ -526,17 +570,11 @@ def run_sf10(torch, np, lt, tcore, export_layout):
         del sess, written, moved_ds
         torch.cuda.empty_cache()
     for i, step in enumerate(("write", "repartition")):
-        d, h = layouts["device"][i], layouts["host"][i]
-        if not np.array_equal(d["counts"], h["counts"]):
-            raise AssertionError(f"SF-10 {step}: counts differ")
-        for k, col in h["columns"].items():
-            got = d["columns"][k]
-            if got.dtype != col.dtype or got.shape != col.shape \
-                    or not np.array_equal(got, col):
-                raise AssertionError(f"SF-10 {step}: column {k} differs")
+        h = layouts["host"][i]
+        same_layout(np, layouts["device"][i], h, f"SF-10 {step}")
         print(f"phase 4: SF-10 {step} layout bit-equal to the host backend "
               f"({int(h['counts'].sum())} rows)", flush=True)
-    return lineitem
+    return lineitem, layouts["host"][1], steps
 
 
 # -- phase 5: flash attention against its plain version ------------------------
@@ -2923,6 +2961,286 @@ def run_training(torch, np, lt, tcore, card):
     return launches
 
 
+# -- phase 13: mesh placement, the MoE and MLA layers at full width -----------
+
+# deepseek-v2's MLA prefill at phase 7's shape: B, H, S, nope, rope, v
+P13_MLA = (SERVE_BATCH, 128, PROMPT_LEN, 128, 64, 128)
+P13_MLA_HELD = 16                   # heads of batch row 0 held to the twin
+# (arch, layers kept, dtypes, decode-against-prefill shape B, S, steps):
+# each model at full width, cut in depth only; llama4-maverick's 35.04 B
+# parameters take 70.1 GB in bf16, so float32 (140 GB) cannot run
+P13_LM = (
+    ("deepseek-v2-236b", 3, ("bfloat16", "float32"), (2, 1024, 8)),
+    ("llama4-maverick-400b-a17b", 4, ("bfloat16",), (2, 512, 8)),
+    ("chameleon-34b", 2, ("bfloat16",), (SERVE_BATCH, PROMPT_LEN, 8)),
+)
+# phase 7's limits; the float32 check reaches the last decode step
+P13_CHECKS = {"bfloat16": ((0, 1), 5e-2), "float32": ((0, 7), 1e-3)}
+
+
+def p13_mesh(torch, np, lt, tcore, hp, lineitem, want, steps,
+             export_layout, card, device="cuda"):
+    """(a) Phase 4's SF-10 lineitem repartitioned d2d onto a one-device
+    mesh, then once more through ``apply_decision(mesh=)``; returns the
+    hash kernels' launches.  ``device="cpu"`` is the CPU dry run
+    (``tests/test_torch_sharding.py``)."""
+    from repro_torch.core.sharding_bridge import Mesh, sharding_for, sharding_of
+    mesh = Mesh([torch.device(device)], ("data",))
+    wl = lt.Workload("sf10")
+    li = wl.scan("lineitem")
+    wl.partition(li["orderkey"])
+    wl.partition(li["partkey"])
+    by_order, by_part = tcore.enumerate_candidates(wl.graph, "lineitem")
+    hp.reset_launches()
+    sess = lt.Session(num_workers=M, device=device)
+    sess.write("lineitem", lineitem, by_order)
+    sess.store.synchronize()
+    t0 = time.perf_counter()
+    placed, moved = sess.repartition("lineitem", by_part, mesh=mesh,
+                                     swap=False)
+    sess.store.synchronize()
+    t1 = time.perf_counter()
+    dec = tcore.PartitioningDecision(
+        dataset="lineitem", candidate=by_part, features=[], consumers=[],
+        action_index=0, state=None, elapsed_s=0.0)
+    applied, _ = tcore.apply_decision(sess.store, dec, mesh=mesh)
+    sess.store.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(hp.LAUNCHES)
+    for what, ds in (("repartition(mesh=)", placed),
+                     ("apply_decision(mesh=)", applied)):
+        if sess.store.read(ds.name) is not ds:
+            raise AssertionError(f"{what}: the store does not serve the "
+                                 "placed generation")
+        for k, col in ds.columns.items():
+            if not isinstance(col, torch.Tensor) \
+                    or col.device != mesh.devices.flat[0]:
+                raise AssertionError(f"{what}: column {k} is not on the "
+                                     "mesh's device")
+            if sharding_of(ds, k) != sharding_for(mesh, ds.partitioner,
+                                                  extra_dims=col.dim() - 2):
+                raise AssertionError(f"{what}: column {k} placed as "
+                                     f"{sharding_of(ds, k)}")
+        same_layout(np, export_layout(ds), want, f"phase 13 (a) {what}")
+    expect = dict(steps["write"] + steps["repartition"]
+                  + steps["repartition"])
+    if {k: v for k, v in launches.items() if v} != expect:
+        raise AssertionError(f"phase 13 (a): hash-kernel launches "
+                             f"{launches}, phase 4's steps give {expect}")
+    print(f"phase 13 (a): lineitem ({len(lineitem['orderkey'])} rows) d2d "
+          "onto "
+          f"{mesh}: repartition(mesh=) {t1 - t0:.4f} s, "
+          f"apply_decision(mesh=) {t2 - t1:.4f} s, moved_bytes={moved}; "
+          f"both layouts bit-equal to phase 4's host backend, every column "
+          f"on {device} and placed as {sharding_for(mesh, by_part)}; "
+          f"launches {launches} (phase 4's write + 2 repartitions) on {card}",
+          flush=True)
+    del sess, placed, applied
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def p13_mla_route(torch, fa, fa_ref, mla, card):
+    """The flash-attention kernel through MLA's padded route at
+    deepseek-v2's prefill shape, in bf16 and float32, held to the plain
+    twin on batch row 0's first heads (the twin's float32 scores at the
+    whole shape would take 69 GB); bf16 timed."""
+    B, H, S, nd, rd, vd = P13_MLA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    scale = 1.0 / math.sqrt(nd + rd)
+    hd = mla.padded_head_dim(nd + rd, vd)
+    row = {}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        qn, qr, kn, v = (torch.randn((B, S, H, d), generator=gen, device=dev,
+                                     dtype=dtype) for d in (nd, rd, nd, vd))
+        kr = torch.randn((B, S, rd), generator=gen, device=dev, dtype=dtype)
+        got = mla.padded_attention(qn, qr, kn, kr, v, scale)
+        h = P13_MLA_HELD
+        q = torch.cat([qn[:1, :, :h], qr[:1, :, :h]], -1).transpose(1, 2)
+        k = torch.cat([kn[:1, :, :h], kr[:1, :, None].expand(1, S, h, rd)],
+                      -1).transpose(1, 2)
+        want = fa_ref.attention_ref(q, k, v[:1, :, :h].transpose(1, 2),
+                                    causal=True, scale=scale).transpose(1, 2)
+        held = got[:1, :, :h]
+        err = check_close(torch, held, want, TOL[dname][0],
+                          f"MLA padded route {dname}")
+        rms = rel_rms(torch, held, want)
+        if not rms <= RMS_LIMIT:
+            raise AssertionError(f"MLA padded route {dname}: relative RMS "
+                                 f"error {rms} above {RMS_LIMIT}")
+        print(f"phase 13: flash_attention via MLA's padded route B={B} H={H} "
+              f"S={S} q·k {nd}+{rd}, v {vd} → hd {hd}, {dname}: batch row 0, "
+              f"heads 0..{h - 1} against the plain twin: max_abs_err={err:.3e} "
+              f"rel_rms={rms:.3e}", flush=True)
+        del got, held, want, q, k
+        if dname == "float32":
+            del qn, qr, kn, kr, v
+            torch.cuda.empty_cache()
+    # the kernel alone on the padded buffers, the route (padding copies
+    # included) and SDPA on the same padded tensors
+    pad = [t.new_zeros((B, S, H, hd)) for t in (qn, kn, v)]
+    pad[0][..., :nd], pad[0][..., nd:nd + rd] = qn, qr
+    pad[1][..., :nd], pad[1][..., nd:nd + rd] = kn, kr[:, :, None]
+    pad[2][..., :vd] = v
+    q, k, vp = (t.transpose(1, 2) for t in pad)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    flops = 2.0 * B * H * S * (S + 1) / 2 * (nd + rd + vd)
+    nbytes = 2 * (B * S * H * (2 * nd + rd + 2 * vd) + B * S * rd)
+    row["ms"] = time_ms(torch, lambda: fa.flash_attention(
+        q, k, vp, causal=True, scale=scale), flush, reps=5, warmup=1)
+    row["route_ms"] = time_ms(torch, lambda: mla.padded_attention(
+        qn, qr, kn, kr, v, scale), flush, reps=5, warmup=1)
+    row["bound_ms"] = max(flops / BF16_FLOP_PER_S,
+                          nbytes / HBM_BYTES_PER_S) * 1e3
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            row["library_ms"] = time_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, vp, is_causal=True, scale=scale), flush, reps=5,
+                warmup=1)
+    except RuntimeError as exc:
+        row["library_ms"] = None
+        print(f"phase 13: SDPA at the padded MLA shape: {exc}", flush=True)
+    lib = row["library_ms"]
+    print(f"phase 13: flash_attention via MLA's padded route bf16: kernel_ms="
+          f"{row['ms']:.4f} route_ms={row['route_ms']:.4f} bound_ms="
+          f"{row['bound_ms']:.4f} (operations: {flops:.4g} FLOP over q·k "
+          f"{nd + rd} and v {vd}, unpadded; {nbytes} B) library_ms="
+          f"{'null' if lib is None else f'{lib:.4f}'} (SDPA, flash or "
+          f"efficient backend, on the padded tensors) on {card}", flush=True)
+    del q, k, vp, pad, qn, qr, kn, kr, v, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+def p13_decode_check(torch, np, T, cfg, params, shape, dname):
+    """Decode logits against a prefill over the same tokens, with a
+    capacity factor of E / top_k where no token can be dropped (at 1.25 a
+    prefill drops and a decode step does not: the two legitimately
+    differ).  Runs where ``params`` are (the CPU in
+    ``tests/test_torch_moe.py``)."""
+    import dataclasses
+    dev = params["embed"]["table"].device
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    positions, limit = P13_CHECKS[dname]
+    B, S, G = shape
+    prompts = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)).to(dev)
+
+    def dropped(aux):
+        d = [float(x) for x in aux["dropped_frac"]]
+        if any(d):
+            raise AssertionError(f"{cfg.name}: {d} dropped at capacity "
+                                 "factor E / top_k")
+    with torch.inference_mode():
+        logits, cache, aux = T.prefill(cfg, params, prompts,
+                                       cache_len=S + G, with_aux=True)
+        dropped(aux)
+        toks, kept = [], {}
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for i in range(G):
+            toks.append(tok)
+            logits, cache = T.decode_step(cfg, params, cache, tok, S + i)
+            if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+                raise AssertionError(f"{cfg.name}: non-finite logits at "
+                                     f"decode step {i}")
+            if i in positions:
+                kept[i] = logits
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        del cache
+        for i, got in sorted(kept.items()):
+            seq = torch.cat([prompts] + toks[:i + 1], 1)
+            ref, _, aux = T.prefill(cfg, params, seq, with_aux=True)
+            dropped(aux)
+            got = got[:, :cfg.vocab_size].float()
+            ref = ref[:, :cfg.vocab_size].float()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            print(f"phase 13: {cfg.name} {dname} decode step {i} vs prefill "
+                  f"of {seq.shape[1]} tokens (batch {B}, prompt {S}"
+                  + (f", capacity factor {cfg.moe.capacity_factor:g}: no "
+                     "drops" if cfg.moe else "")
+                  + f"): max_abs_err={err:.4e} (logits max-abs {scale:.4e}; "
+                  f"limit {limit} of it)", flush=True)
+            if not (math.isfinite(err) and err <= limit * scale):
+                raise AssertionError(f"{cfg.name} {dname}: decode step {i} "
+                                     f"logits differ from prefill by {err}")
+
+
+def p13_lm(torch, np, T, serve, get_config, counters, fa, arch, layers,
+           dtypes, check, card):
+    """(b)-(d): ``serve_batch`` at full width with ``layers`` layers kept,
+    seeded random weights, batch 8, prompt 4096, 32 tokens; flash launches
+    once per attention layer in the prefill; the MoE drop fractions at the
+    configured capacity; decode against prefill.  Returns the bf16 serve's
+    flash launches."""
+    import dataclasses
+    dev = torch.device("cuda")
+    launched = 0
+    for dname in dtypes:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), param_dtype=dname,
+                                  num_layers=layers)
+        torch.cuda.empty_cache()
+        params = T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"phase 13: {arch} {dname}, {layers} layers "
+              f"({', '.join(f'{s.mixer}/{s.ffn}' for s in cfg.all_specs)}): "
+              f"{cfg.param_count()} parameters, "
+              f"{torch.cuda.memory_allocated()} B on the card, initialised "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), dtype=np.int32)
+        torch.cuda.reset_peak_memory_stats()
+        for reset, _ in counters:
+            reset()
+        out, stats = serve.serve_batch(cfg, params, prompts, GEN, device=dev)
+        flash = fa.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"phase 13: {arch} {dname} serve_batch batch={SERVE_BATCH} "
+              f"prompt={PROMPT_LEN} gen={GEN}: "
+              f"prefill_s={stats['prefill_s']:.4f} "
+              f"decode_s={stats['decode_s']:.4f} "
+              f"decode_tokens_per_s={stats['tokens_per_s']:.1f} "
+              f"max_memory_allocated={peak} flash_attention launches={flash} "
+              f"on {card}", flush=True)
+        if flash != layers:
+            raise AssertionError(f"{arch} {dname}: flash_attention launched "
+                                 f"{flash} times in one prefill, not once per "
+                                 f"attention layer ({layers})")
+        if out.shape != (SERVE_BATCH, GEN) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch}: bad generated ids {out.shape}")
+        if dname == "bfloat16":
+            launched += flash
+            if cfg.moe is not None:
+                with torch.inference_mode():
+                    _, _, aux = T.prefill(cfg, params,
+                                          torch.from_numpy(prompts).to(dev),
+                                          with_aux=True)
+                print(f"phase 13: {arch} prefill at capacity factor "
+                      f"{cfg.moe.capacity_factor}: dropped_frac per MoE layer "
+                      f"{[round(float(d), 6) for d in aux['dropped_frac']]}, "
+                      f"load_balance_loss (summed) "
+                      f"{float(aux['load_balance_loss']):.6f}", flush=True)
+                del aux
+        p13_decode_check(torch, np, T, cfg, params, check, dname)
+        del params
+        torch.cuda.empty_cache()
+        print(f"phase 13: {arch} {dname} done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2946,6 +3264,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as ss_ref
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.launch import serve
+    from repro_torch.models import mla
     from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
@@ -2976,7 +3295,8 @@ def main() -> int:
     print(f"phase 3: done in {time.perf_counter() - t3:.1f} s; launches "
           f"{dict(hp.LAUNCHES)}", flush=True)
     t4 = time.perf_counter()
-    lineitem10 = run_sf10(torch, np, lt, tcore, export_layout)
+    lineitem10, sf10_host_moved, sf10_steps = run_sf10(
+        torch, np, lt, tcore, export_layout, hp)
     print(f"phase 4: done in {time.perf_counter() - t4:.1f} s", flush=True)
     launches = dict(hp.LAUNCHES)
     routes = dict(hp.SCATTER_ROUTES)
@@ -3019,7 +3339,7 @@ def main() -> int:
     hp.reset_launches()
     t9 = time.perf_counter()
     child = run_durable(torch, np, lt, tcore, lineitem10, tpch1)
-    del lineitem10, tpch1
+    del tpch1
     phase9 = {k: v + child[k] for k, v in hp.LAUNCHES.items()}
     for k in ("hash_partition", "scatter_perm"):
         if phase9[k] == 0:
@@ -3055,6 +3375,28 @@ def main() -> int:
         launches[k] += v
     print(f"phase 12: done in {time.perf_counter() - t12:.1f} s on {card}; "
           f"launches over the LMs' train steps {phase12}", flush=True)
+
+    t13 = time.perf_counter()
+    mesh_launches = p13_mesh(torch, np, lt, tcore, hp, lineitem10,
+                             sf10_host_moved, sf10_steps, export_layout, card)
+    del lineitem10, sf10_host_moved
+    for k, v in mesh_launches.items():
+        launches[k] += v
+    print(f"phase 13 (a): done in {time.perf_counter() - t13:.1f} s",
+          flush=True)
+    tm = time.perf_counter()
+    p13_mla_route(torch, fa, fa_ref, mla, card)
+    print(f"phase 13: MLA route done in {time.perf_counter() - tm:.1f} s",
+          flush=True)
+    for part, (arch, layers, dtypes, check) in zip("bcd", P13_LM):
+        tp = time.perf_counter()
+        launches["flash_attention"] += p13_lm(
+            torch, np, T, serve, get_config, counters, fa, arch, layers,
+            dtypes, check, card)
+        print(f"phase 13 ({part}): {arch} done in "
+              f"{time.perf_counter() - tp:.1f} s", flush=True)
+    print(f"phase 13: done in {time.perf_counter() - t13:.1f} s on {card}",
+          flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

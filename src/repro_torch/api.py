@@ -335,11 +335,13 @@ class Session:
              generation: Optional[int] = None) -> StoredDataset:
         return self.store.read(name, generation=generation)
 
-    def repartition(self, name: str, partitioner, *, swap: bool = True):
+    def repartition(self, name: str, partitioner, *, mesh=None,
+                    swap: bool = True):
         """Repartition a stored dataset (publishes a new generation; the
-        affected cached plans miss on their next lookup)."""
+        affected cached plans miss on their next lookup).  ``mesh`` (a
+        one-device ``core.sharding_bridge.Mesh``) places the result on it."""
         ds = self.store.read(name)
-        return self.store.repartition(ds, partitioner, swap=swap)
+        return self.store.repartition(ds, partitioner, mesh=mesh, swap=swap)
 
     def flush(self, name: Optional[str] = None) -> int:
         """Persist pending generations to the durable tier (no-op without

@@ -9,6 +9,8 @@
 #   planner          — Workload → LogicalPlan → PhysicalPlan + plan cache
 #   executor         — runs frozen PhysicalPlans (§4 semantics)
 #   engine           — legacy eager facade, now a deprecation shim
+#   sharding_bridge  — partitionings ⇄ placements on a device mesh
+#   sharding_advisor — scores LM sharding variants with an injected roofline
 
 from .ir import IRGraph, Node
 from .dsl import Workload, author_integrator, pagerank_iteration, matmul_workload

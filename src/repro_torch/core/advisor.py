@@ -140,10 +140,7 @@ def apply_decision(store, decision: PartitioningDecision, *, mesh=None,
     flip the dataset to the new generation so readers never observe a
     half-shuffled table (DESIGN §8).  Returns ``(new_dataset, bytes_moved)``.
 
-    ``mesh`` placement is not ported yet (ROADMAP Queue 1 item 6)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "apply_decision(mesh=) is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 6: core/sharding_bridge.py)")
+    ``mesh`` (a one-device ``core.sharding_bridge.Mesh``) places the result
+    on it, as ``PartitionStore.repartition(mesh=)`` does."""
     ds = store.read(decision.dataset)
-    return store.repartition(ds, decision.candidate, swap=swap)
+    return store.repartition(ds, decision.candidate, mesh=mesh, swap=swap)

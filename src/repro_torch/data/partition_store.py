@@ -122,6 +122,9 @@ class StoredDataset:
     created_at: float = field(default_factory=time.time)
     generation: int = 0
     capacity_map: Optional[CapacityMap] = None
+    # column → NamedSharding, set by core.sharding_bridge.device_put_dataset
+    # (read with its sharding_of)
+    placement: Optional[Dict[str, Any]] = None
 
     @property
     def num_workers(self) -> int:
@@ -1099,12 +1102,12 @@ class PartitionStore:
         generation under its own name: the whole shuffle materializes off
         to the side, then one atomic pointer flip publishes it.
 
-        ``mesh`` placement is not ported yet (ROADMAP Queue 1 item 6)."""
+        Pass ``mesh`` (a one-device :class:`~repro_torch.core.
+        sharding_bridge.Mesh`) to place the result on it
+        (``sharding_bridge.device_put_dataset``), so repartitioned datasets
+        stay mesh-placed."""
         if mesh is not None:
-            raise NotImplementedError(
-                "PartitionStore.repartition(mesh=) is not ported to the "
-                "torch package yet (ROADMAP Queue 1 item 6: "
-                "core/sharding_bridge.py)")
+            from ..core.sharding_bridge import device_put_dataset
         t0 = time.perf_counter()
         moved = int(ds.nbytes * (self.m - 1) / self.m)
         name = name or (ds.name if swap else ds.name + "@reparted")
@@ -1117,14 +1120,16 @@ class PartitionStore:
                 rsp.set(path="d2d")
                 columns, counts, cmap = device_repartition_dataset(
                     ds, partitioner, self.m, plan_capacity=self._plan_cmap)
-                # the histogram reached the host early; the scatter and
-                # gathers may still run: the logged latency, and the
-                # Autopilot's apply wall around this call, wait for them
-                self.synchronize()
                 new = StoredDataset(name=name, columns=columns, counts=counts,
                                     partitioner=partitioner,
                                     num_rows=int(counts.sum()),
                                     nbytes=ds.nbytes, capacity_map=cmap)
+                if mesh is not None:
+                    new = device_put_dataset(mesh, new)
+                # the histogram reached the host early; the scatter and
+                # gathers may still run: the logged latency, and the
+                # Autopilot's apply wall around this call, wait for them
+                self.synchronize()
                 self._install(name, new)
                 self._log_write({
                     "name": name, "rows": new.num_rows, "bytes": new.nbytes,
@@ -1139,6 +1144,15 @@ class PartitionStore:
             else:
                 rsp.set(path="host")
                 new = self.write(name, ds.gather(), partitioner)
+                if mesh is not None:
+                    # same generation, mesh-placed columns — re-publish only
+                    # if no newer generation landed while placing (CAS)
+                    new = device_put_dataset(mesh, new)
+                    with self._swap_lock:
+                        cur = self.datasets.get(name)
+                        if cur is not None \
+                                and cur.generation == new.generation:
+                            self.datasets[name] = new
             if _recording(rsp):
                 self.synchronize()
         return new, moved

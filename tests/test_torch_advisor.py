@@ -306,8 +306,15 @@ def test_apply_decision_matches_reference(backend):
     for k in jg:
         assert tg[k].dtype == jg[k].dtype
         np.testing.assert_array_equal(tg[k], jg[k])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcore.apply_decision(_port_store("host"), dec, mesh=object())
+    # with a mesh: the same layout, placed on it
+    from repro_torch.core.sharding_bridge import Mesh, sharding_of
+    store = _port_store(backend)
+    store.write("submissions", subs)
+    mesh = Mesh(["cpu"], ("data",))
+    placed, _ = tcore.apply_decision(store, dec, mesh=mesh)
+    assert sharding_of(placed, "author").mesh == mesh
+    for k, v in placed.gather().items():
+        np.testing.assert_array_equal(v, jg[k])
 
 
 def _engine_run(core, store, partitioned):

@@ -501,7 +501,9 @@ def test_cuda_lm_launch_counters(cuda):
     assert ss.LAUNCHES == {"ssd_scan": 1}
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m",
+                                  "chameleon-34b", "llama4-maverick-400b-a17b",
+                                  "deepseek-v2-236b"])
 def test_cuda_reduced_prefill_matches_cpu(cuda, arch):
     """Reduced model (head_dim 32: the kernel takes 32..256), float32:
     prefill and two decode steps on the card equal the same weights on the
@@ -945,3 +947,63 @@ def test_cuda_agent_matches_a_cpu_agent(cuda):
     assert abs(lg - lc) <= 1e-5 * max(1.0, abs(lc))
     for a, b in zip(card.params, cpu.params):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+# -- the MoE and MLA layers -----------------------------------------------------
+
+from repro_torch.models import mla as tmla  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_padded_route_matches_twin(cuda, dtype):
+    """deepseek-v2's head dims (nope 128 + rope 64, v 128): q and k padded
+    to 256 through the kernel, against the plain twin on the unpadded
+    tensors with the scale 1/sqrt(192)."""
+    B, S, H, nd, rd, vd = 2, 320, 4, 128, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+    qn, qr, kn, v = rnd(B, S, H, nd), rnd(B, S, H, rd), rnd(B, S, H, nd), \
+        rnd(B, S, H, vd)
+    kr = rnd(B, S, rd)
+    scale = 1.0 / (nd + rd) ** 0.5
+    fa.reset_launches()
+    got = tmla.padded_attention(qn, qr, kn, kr, v, scale)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    q = torch.cat([qn, qr], -1).transpose(1, 2)
+    k = torch.cat([kn, kr[:, :, None].expand(B, S, H, rd)], -1).transpose(1, 2)
+    want = attention_ref(q, k, v.transpose(1, 2), causal=True,
+                         scale=scale).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S, H, vd)
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    err = torch.linalg.vector_norm(got.double() - want.double())
+    assert float(err / torch.linalg.vector_norm(want.double())) <= 1e-2
+
+
+def test_cuda_moe_ffn_matches_cpu(cuda):
+    """deepseek's routing shape (top-6 of 16 experts, 2 shared) with drops:
+    the same routing on the card as on the CPU, outputs within 1e-4."""
+    E, k, D, F = 16, 6, 64, 32
+    p = tmoe.moe_init(torch.Generator().manual_seed(0), D, F, E, 2,
+                      torch.float32)
+    x = torch.randn((3, 40, D), generator=torch.Generator().manual_seed(1))
+    dp = _to_device(p, cuda)
+    for factor in (1.25, 0.5):
+        C = tmoe.capacity(120, E, k, factor)
+        want_r = tmoe.route(p, x.reshape(-1, D), E, k, C)
+        got_r = tmoe.route(dp, x.reshape(-1, D).to(cuda), E, k, C)
+        for a, b in zip(got_r[:3], want_r[:3]):
+            assert torch.equal(a.cpu(), b)
+        want, waux = tmoe.moe_ffn(p, x, num_experts=E, top_k=k,
+                                  capacity_factor=factor)
+        got, gaux = tmoe.moe_ffn(dp, x.to(cuda), num_experts=E, top_k=k,
+                                 capacity_factor=factor)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for key in waux:
+            torch.testing.assert_close(gaux[key].cpu(), waux[key],
+                                       atol=1e-5, rtol=1e-5)
+    assert float(gaux["dropped_frac"]) > 0

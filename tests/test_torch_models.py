@@ -1,7 +1,10 @@
 """The torch port's LM serving path against the JAX package on the CPU.
 
-Reduced internlm2-1.8b (dense GQA attention) and mamba2-370m (SSD) in
-float32: weights from the JAX ``T.init_params`` carried across by
+Every config the port runs, reduced, in float32 — among them internlm2-1.8b
+(dense GQA attention), mamba2-370m (SSD), chameleon-34b (qk-norm; its
+``vq`` frontend is a stub in both packages), llama4-maverick (MoE every
+other layer, local and global NoPE layers) and deepseek-v2 (MLA, a dense
+prefix layer, then MoE; the MLA latent caches are compared too): weights from the JAX ``T.init_params`` carried across by
 ``params_from_jax``; prefill and three decode steps compared on logits and
 caches within 1e-4, and greedy ``serve_batch`` tokens compared exactly.
 In the port the prefill mixers go through the kernels' plain versions
@@ -29,7 +32,8 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "mamba2-370m", "gemma-7b", "gemma2-27b",
-         "qwen1.5-110b"]
+         "qwen1.5-110b", "chameleon-34b", "llama4-maverick-400b-a17b",
+         "deepseek-v2-236b"]
 TOL = 1e-4
 
 
@@ -147,8 +151,8 @@ def test_params_from_jax_bf16_round_trip_is_bit_exact():
 
 
 @pytest.mark.parametrize("name,field,value", [
-    ("llama4-maverick-400b-a17b", None, None),         # MoE + iRoPE
-    ("deepseek-v2-236b", None, None),                  # MLA + MoE
+    ("llama4-maverick-400b-a17b", "windowed_local_cache", True),  # ring cache
+    ("deepseek-v2-236b", "positional", "learned"),
     ("recurrentgemma-9b", None, None),                 # RG-LRU
     ("whisper-small", None, None),                     # encoder
     ("internlm2-1.8b", "positional", "learned"),

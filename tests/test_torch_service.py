@@ -489,9 +489,16 @@ def test_namespace_bytes_and_stored_partitioners_match_reference(port):
 def test_store_cluster_and_mesh_surfaces():
     store = PartitionStore(4, backend="device", device="cpu")
     assert store.is_cluster is False and store.directory is None
-    ds = store.write("d", {"k": np.arange(20)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        store.repartition(ds, _cand(tsvc, tcore), mesh=object())
+    store.write("d", {"k": np.arange(20)})
+    from repro_torch.core.sharding_bridge import Mesh, sharding_of
+    mesh = Mesh(["cpu"], ("data",))
+    keyed = store.write("o", {"orderkey": np.arange(20)})
+    new, _ = store.repartition(keyed, _cand(tsvc, tcore), mesh=mesh)
+    assert store.read(new.name) is new
+    assert sharding_of(new, "orderkey").mesh == mesh
+    with pytest.raises(ValueError, match="torch.distributed"):
+        store.repartition(keyed, _cand(tsvc, tcore),
+                          mesh=Mesh(["cpu"] * 2, ("data",)))
     # cluster actions forced on over a store with no health signals: the
     # phase runs and finds nothing, as in the reference
     forced = tsvc.StorageOptimizer(store, tcore.HistoryStore(),

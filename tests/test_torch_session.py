@@ -618,6 +618,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             st, {"tokens": tok, "labels": tok})
         assert met["wire_bytes"] > 0 and isinstance(
             st["ef"], compression.ErrorFeedbackState)
+        # mesh placement, the sharding advisor, MoE and MLA
+        from repro_torch.core import sharding_advisor
+        from repro_torch.core.sharding_bridge import Mesh, sharding_of
+        from repro_torch.models import mla, moe
+        ms = lachesis_torch.Session(num_workers=4, device="cpu")
+        wl = author_integrator()
+        ms.write("submissions", {"author": np.arange(30),
+                                 "score": np.ones(30, np.float32)})
+        placed, _ = ms.repartition(
+            "submissions", enumerate_candidates(wl.graph, "submissions")[0],
+            mesh=Mesh(["cpu"], ("data",)))
+        assert sharding_of(placed, "score") is not None
+        assert sharding_advisor.dominant_term(
+            {"compute_s": 1, "memory_s": 2, "collective_s": 0}) == 2
+        for arch in ("deepseek-v2-236b", "llama4-maverick-400b-a17b",
+                     "chameleon-34b"):
+            cfg = reduced(get_config(arch))
+            params = transformer.init_params(
+                cfg, torch.Generator().manual_seed(0), "cpu")
+            gen, _ = serve.serve_batch(cfg, params, np.zeros((1, 8), np.int32),
+                                       2, device="cpu")
+            assert gen.shape == (1, 2)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "lachesis"))
