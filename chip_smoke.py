@@ -134,7 +134,30 @@ Phases (any failure exits non-zero before the result line):
    decode logits against a prefill over the same tokens with a capacity
    factor of E / top_k, where nothing drops (batch 2 × 1024 for
    deepseek-v2, 2 × 512 for llama4, 8 × 4096 for chameleon; phase 7's
-   limits).
+   limits);
+14. the RG-LRU mixer, ring-buffered local caches, the encoder and
+   cross-attention: (a) the flash kernel at recurrentgemma-9b's local
+   layer (B=4, H=16 over one kv head, S=4096, hd=256, causal, window
+   2048), whisper-small's encoder (B=8, H=12, 1500 frames, hd=64,
+   non-causal) and its cross-attention (224 queries over 1500 frames), in
+   float32 and bf16, held to the plain twin within phase 5's limits and
+   timed beside the twin and SDPA (a boolean window mask for the first);
+   (b) ``serve_batch`` for recurrentgemma-9b at full width and depth (38
+   layers, 9,395,240,960 parameters, bf16; batch 4, prompt 4096 past the
+   window, 32 tokens, seeded random weights): flash launched once per
+   local layer (12), a traced prefill whose 12 ring caches must hold 2048
+   slots, one layer's conv, gates and log-depth scan timed with CUDA
+   events, and the bf16 decode-against-prefill gap at full depth printed
+   (the state is rounded to bf16 every step, as in the reference);
+   (c) decode against prefill at depth 5 (rglru, rglru, attn, rglru,
+   rglru), float32 and bf16, batch 4: a prompt of 2040 and 16 steps (the
+   ring wraps in decode) and a prompt of 4096 and 8 steps (it wrapped in
+   the prefill), phase 7's limits; (d) whisper-small at full width and
+   depth (12 encoder and 12 decoder layers), float32 and bf16:
+   ``serve_batch`` at batch 8, prompt 224, 32 tokens over seeded random
+   frames (8, 1500, 768), flash launched 36 times a prefill (12 encoder,
+   12 decoder self-attention, 12 cross-attention), decode against prefill
+   within phase 7's limits.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -146,8 +169,9 @@ frontend's threads), each process of phase 11 (the hash-partition
 kernels, equal to the counts a CPU dry run of its steps predicts) and
 phase 12's train steps (each LM's kernel and its backward recomputes,
 per step equal to a CPU dry run's), phase 13 (a) (the hash-partition
-kernels) and each of phase 13's serves (flash attention, once per layer in
-the prefill).
+kernels), each of phase 13's serves (flash attention, once per layer in
+the prefill) and each of phase 14's (flash attention: 12 per
+recurrentgemma-9b prefill, 36 per whisper-small prefill).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -3241,6 +3265,315 @@ def p13_lm(torch, np, T, serve, get_config, counters, fa, arch, layers,
     return launched
 
 
+# -- phase 14: the RG-LRU mixer, ring caches, the encoder and cross-attention --
+
+F32_FLOP_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+# (label, (B, H, KV, Sq, Skv, hd, causal, window)): the flash kernel at the
+# prefill shapes of recurrentgemma-9b's local layers and whisper-small's
+# encoder and cross-attention
+P14_FLASH = (
+    ("recurrentgemma-9b local layer", (4, 16, 1, 4096, 4096, 256, True, 2048)),
+    ("whisper-small encoder", (8, 12, 12, 1500, 1500, 64, False, None)),
+    ("whisper-small cross-attention", (8, 12, 12, 224, 1500, 64, False,
+                                       None)),
+)
+# (arch, batch, prompt, tokens): serve_batch at full width and depth
+P14_RG = ("recurrentgemma-9b", 4, 4096, 32)
+P14_WHISPER = ("whisper-small", 8, 224, 32)
+# recurrentgemma decode against prefill at depth 5 (one rglru, rglru, attn
+# period and the 2-layer recurrent tail): (batch, prompt, steps), the ring
+# (2048 slots) wrapping in decode, then in the prefill
+P14_RG_DEPTH = 5
+P14_RG_CHECKS = ((4, 2040, 16), (4, 4096, 8))
+
+
+def attention_pairs(Sq, Skv, causal, window) -> int:
+    """The (query, key) pairs a mask keeps, queries at positions 0..Sq-1."""
+    pairs = 0
+    for q in range(Sq):
+        hi = min(q + 1, Skv) if causal else Skv
+        lo = max(0, q - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def p14_flash(torch, fa, fa_ref, card):
+    """(a) The flash kernel at the three new shapes, float32 and bf16,
+    held to the plain twin within phase 5's limits and timed beside the
+    twin and one SDPA call on the same tensors; returns the bf16 rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    rows = {}
+    for what, (B, H, KV, Sq, Skv, hd, causal, window) in P14_FLASH:
+        pairs = attention_pairs(Sq, Skv, causal, window)
+        flops = 4.0 * hd * pairs * B * H
+        mask = None
+        if window is not None:
+            qp = torch.arange(Sq, device=dev)[:, None]
+            kp = torch.arange(Skv, device=dev)[None, :]
+            mask = (kp <= qp) & (qp - kp < window)
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=dev)
+                       .to(dtype).transpose(1, 2)
+                       for S, n in ((Sq, H), (Skv, KV), (Skv, KV)))
+            kw = dict(causal=causal, window=window)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa_ref.attention_ref(q, k, v, **kw)
+            err = check_close(torch, got, want, TOL[dname][0],
+                              f"phase 14 flash_attention {what} {dname}")
+            rms = rel_rms(torch, got, want)
+            if dname == "bfloat16" and not rms <= RMS_LIMIT:
+                raise AssertionError(f"phase 14 flash_attention {what}: "
+                                     f"relative RMS error {rms} above "
+                                     f"{RMS_LIMIT}")
+            del got, want
+            torch.cuda.empty_cache()
+            nbytes = q.element_size() * (2 * B * H * Sq * hd
+                                         + 2 * B * KV * Skv * hd)
+            peak = BF16_FLOP_PER_S if dname == "bfloat16" else F32_FLOP_PER_S
+            bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+            row = {
+                "max_abs_err": err, "rel_rms": rms, "bound_ms": bound,
+                "bound_by": ("operations" if flops / peak
+                             > nbytes / HBM_BYTES_PER_S else "bytes"),
+                "ms": time_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, **kw), flush, reps=10),
+                "plain_ms": time_ms(torch, lambda: fa_ref.attention_ref(
+                    q, k, v, **kw), flush, reps=3, warmup=1)}
+            try:
+                row["library_ms"] = time_ms(
+                    torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask,
+                        is_causal=causal and mask is None, enable_gqa=True),
+                    flush, reps=10)
+            except RuntimeError as exc:
+                row["library_ms"] = None
+                print(f"phase 14: SDPA at {what} {dname}: {exc}", flush=True)
+            lib = row["library_ms"]
+            print(f"phase 14: (a) flash_attention {what} B={B} H={H} KV={KV} "
+                  f"Sq={Sq} Skv={Skv} hd={hd} causal={causal} "
+                  f"window={window} {dname}: max_abs_err={err:.3e} "
+                  f"rel_rms={rms:.3e} kernel_ms={row['ms']:.4f} "
+                  f"bound_ms={bound:.4f} ({row['bound_by']}: {flops:.4g} "
+                  f"FLOP over {pairs} kept pairs a head, {nbytes} B) "
+                  f"plain_ms={row['plain_ms']:.4f} library_ms="
+                  f"{'null' if lib is None else f'{lib:.4f}'} (SDPA"
+                  + (", boolean window mask" if mask is not None else "")
+                  + f") on {card}", flush=True)
+            if dname == "bfloat16":
+                rows[what] = row
+            del q, k, v
+            torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def p14_decode_check(torch, np, T, cfg, params, shape, dname, frames=None,
+                     held=True):
+    """Greedy decode logits against a prefill over the same tokens (and
+    frames), phase 7's limits: bf16 steps 0 and 1, float32 steps 0 and
+    the last, held where ``held``; the last step is printed always.  Runs
+    where ``params`` are (the CPU in ``tests/test_torch_models.py``)."""
+    dev = params["embed"]["table"].device
+    B, S, G = shape
+    limit = DECODE_CHECKS[dname][1]
+    gated = ({0, 1} if dname == "bfloat16" else {0, G - 1}) if held else set()
+    prompts = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)).to(dev)
+    worst = 0.0
+    with torch.inference_mode():
+        logits, cache = T.prefill(cfg, params, prompts, frames=frames,
+                                  cache_len=S + G)
+        toks, kept = [], {}
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for i in range(G):
+            toks.append(tok)
+            logits, cache = T.decode_step(cfg, params, cache, tok, S + i)
+            if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+                raise AssertionError(f"{cfg.name}: non-finite logits at "
+                                     f"decode step {i}")
+            if i in gated or i == G - 1:
+                kept[i] = logits
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        del cache
+        for i, got in sorted(kept.items()):
+            seq = torch.cat([prompts] + toks[:i + 1], 1)
+            ref, _ = T.prefill(cfg, params, seq, frames=frames)
+            got = got[:, :cfg.vocab_size].float()
+            ref = ref[:, :cfg.vocab_size].float()
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            print(f"phase 14: {cfg.name} {dname} ({cfg.num_layers} layers) "
+                  f"decode step {i} (position {S + i}) vs prefill of "
+                  f"{seq.shape[1]} tokens (batch {B}): max_abs_err="
+                  f"{err:.4e} (logits max-abs {scale:.4e}; "
+                  + (f"limit {limit} of it)" if i in gated else
+                     "printed, not held)"), flush=True)
+            if i in gated:
+                if not (math.isfinite(err) and err <= limit * scale):
+                    raise AssertionError(f"{cfg.name} {dname}: decode step "
+                                         f"{i} logits differ from prefill "
+                                         f"by {err}")
+                worst = max(worst, err / scale)
+    return worst
+
+
+def p14_serve(torch, np, T, serve, cfg, counters, fa, shape, card,
+              frames=None):
+    """``serve_batch`` with seeded random weights; flash must launch once
+    per attention layer, encoder layer and cross-attention in the prefill.
+    Returns (params, generated ids, flash launches)."""
+    dev = torch.device("cuda")
+    B, S, G = shape
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    print(f"phase 14: {cfg.name} {cfg.param_dtype}, {cfg.num_layers} layers"
+          + (f" + {cfg.encoder.num_layers} encoder layers" if cfg.encoder
+             else "")
+          + f": {cfg.param_count()} parameters, "
+          f"{torch.cuda.memory_allocated()} B on the card, initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    for reset, _ in counters:
+        reset()
+    out, stats = serve.serve_batch(cfg, params, prompts, G, frames=frames,
+                                   device=dev)
+    flash = fa.LAUNCHES["flash_attention"]
+    expect = sum(s.mixer == "attn" for s in cfg.all_specs)
+    if cfg.encoder is not None:
+        expect += cfg.encoder.num_layers + cfg.num_layers
+    print(f"phase 14: {cfg.name} {cfg.param_dtype} serve_batch batch={B} "
+          f"prompt={S} gen={G}: prefill_s={stats['prefill_s']:.4f} "
+          f"decode_s={stats['decode_s']:.4f} "
+          f"decode_tokens_per_s={stats['tokens_per_s']:.1f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"flash_attention launches={flash} (expected {expect}) on {card}",
+          flush=True)
+    if flash != expect:
+        raise AssertionError(f"{cfg.name} {cfg.param_dtype}: flash_attention "
+                             f"launched {flash} times in one prefill, not "
+                             f"{expect}")
+    if out.shape != (B, G) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: bad generated ids {out.shape}")
+    return params, prompts, flash
+
+
+def p14_recurrentgemma(torch, np, T, RG, serve, get_config, counters, fa,
+                       card):
+    """(b) recurrentgemma-9b at full width and depth in bf16: serve, a
+    traced prefill (each local layer's ring cache must hold 2048 slots),
+    the RG-LRU pieces at their prefill shape timed, and the bf16
+    decode-against-prefill gap at full depth printed.  (c) decode against
+    prefill at depth 5, float32 and bf16, held.  Returns the bf16 serve's
+    flash launches."""
+    import dataclasses
+    dev = torch.device("cuda")
+    arch, B, S, G = P14_RG
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    params, prompts, flash = p14_serve(torch, np, T, serve, cfg, counters,
+                                       fa, (B, S, G), card)
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompts).to(dev)
+        (_, cache), busy, wall, by_name = device_busy(
+            torch, lambda: T.prefill(cfg, params, toks, cache_len=S + G))
+        lengths = [c["k"].shape[1] for c, spec in zip(cache, cfg.all_specs)
+                   if spec.mixer == "attn"]
+        del cache
+    print(f"phase 14: (b) {arch} prefill of {S} tokens traced: device busy "
+          f"{busy:.1f} ms of {wall:.1f} ms wall; top " + "; ".join(
+              f"{k[:60]} {v:.2f} ms"
+              for k, v in Counter(by_name).most_common(4))
+          + f"; local layers' cache lengths {lengths} (window "
+          f"{cfg.sliding_window}, cache_len {S + G})", flush=True)
+    if len(lengths) != 12 or set(lengths) != {cfg.sliding_window}:
+        raise AssertionError(f"{arch}: local caches {lengths}, not 12 rings "
+                             f"of {cfg.sliding_window}")
+    # the RG-LRU pieces of one layer at the prefill's shape, CUDA events:
+    # the depthwise conv, the gates (two width x width GEMMs and the
+    # elementwise coefficients) and the log-depth scan over float32 (a, b)
+    p = params["layers"][0]["attn"]
+    W = cfg.rglru.width
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    with torch.inference_mode():
+        x = torch.randn((B, S, W), generator=torch.Generator(device=dev)
+                        .manual_seed(14), device=dev).to(torch.bfloat16)
+        a, b = RG._rglru_coeffs(p, x)
+        conv_ms = time_ms(torch, lambda: RG._causal_conv1d(
+            x, p["conv_w"], p["conv_b"]), flush, reps=10)
+        coeff_ms = time_ms(torch, lambda: RG._rglru_coeffs(p, x), flush,
+                           reps=10)
+        scan_ms = time_ms(torch, lambda: RG.linear_scan(a, b), flush,
+                          reps=10)
+    scan_bytes = 3 * a.numel() * 4          # a and b read, h written
+    conv_bytes = 2 * x.numel() * 2
+    print(f"phase 14: (b) RG-LRU pieces of one layer, B={B} T={S} width={W} "
+          f"bf16: conv1d_ms={conv_ms:.4f} (bound "
+          f"{conv_bytes / HBM_BYTES_PER_S * 1e3:.4f}, bytes) gates_ms="
+          f"{coeff_ms:.4f} linear_scan_ms={scan_ms:.4f} (float32, "
+          f"{math.ceil(math.log2(S))} passes; bound "
+          f"{scan_bytes / HBM_BYTES_PER_S * 1e3:.4f}, bytes: a and b read "
+          f"once, h written once); x 26 recurrent layers a prefill on {card}",
+          flush=True)
+    del x, a, b, flush, p
+    torch.cuda.empty_cache()
+    p14_decode_check(torch, np, T, cfg, params, (B, S, 8), "bfloat16",
+                     held=False)
+    del params
+    torch.cuda.empty_cache()
+    for dname in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cut = dataclasses.replace(get_config(arch), param_dtype=dname,
+                                  num_layers=P14_RG_DEPTH)
+        params = T.init_params(
+            cut, torch.Generator(device=dev).manual_seed(1), dev)
+        for shape in P14_RG_CHECKS:
+            p14_decode_check(torch, np, T, cut, params, shape, dname)
+        del params
+        torch.cuda.empty_cache()
+        print(f"phase 14: (c) {arch} {dname} at depth {P14_RG_DEPTH} "
+              f"({', '.join(s.mixer for s in cut.all_specs)}) done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return flash
+
+
+def p14_whisper(torch, np, T, serve, get_config, counters, fa, card):
+    """(d) whisper-small at full width and depth, bf16 and float32:
+    ``serve_batch`` over seeded random frames, flash launched 36 times a
+    prefill, decode against prefill held.  Returns the bf16 serve's flash
+    launches."""
+    import dataclasses
+    dev = torch.device("cuda")
+    arch, B, S, G = P14_WHISPER
+    launched = 0
+    for dname in DECODE_CHECKS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), param_dtype=dname)
+        frames = torch.randn(
+            (B, cfg.encoder.num_frames, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(14)
+        ).to(getattr(torch, dname))
+        params, _, flash = p14_serve(torch, np, T, serve, cfg, counters, fa,
+                                     (B, S, G), card, frames=frames)
+        if dname == "bfloat16":
+            launched += flash
+        p14_decode_check(torch, np, T, cfg, params, (B, S, G), dname,
+                         frames=frames)
+        del params, frames
+        torch.cuda.empty_cache()
+        print(f"phase 14: (d) {arch} {dname} done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3265,6 +3598,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.launch import serve
     from repro_torch.models import mla
+    from repro_torch.models import rglru as RG
     from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
@@ -3396,6 +3730,23 @@ def main() -> int:
         print(f"phase 13 ({part}): {arch} done in "
               f"{time.perf_counter() - tp:.1f} s", flush=True)
     print(f"phase 13: done in {time.perf_counter() - t13:.1f} s on {card}",
+          flush=True)
+
+    t14 = time.perf_counter()
+    p14_flash(torch, fa, fa_ref, card)
+    print(f"phase 14 (a): done in {time.perf_counter() - t14:.1f} s",
+          flush=True)
+    tp = time.perf_counter()
+    launches["flash_attention"] += p14_recurrentgemma(
+        torch, np, T, RG, serve, get_config, counters, fa, card)
+    print(f"phase 14 (b)-(c): done in {time.perf_counter() - tp:.1f} s",
+          flush=True)
+    tp = time.perf_counter()
+    launches["flash_attention"] += p14_whisper(
+        torch, np, T, serve, get_config, counters, fa, card)
+    print(f"phase 14 (d): done in {time.perf_counter() - tp:.1f} s",
+          flush=True)
+    print(f"phase 14: done in {time.perf_counter() - t14:.1f} s on {card}",
           flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]

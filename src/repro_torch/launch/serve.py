@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``launch/serve.py``.  Prefill runs the
 full-sequence mixers through the hand-written kernels (flash attention for
-attention layers, the chunked SSD scan for SSD layers); decode runs the
-cached attention and the SSD recurrence in torch.  It runs on the card
+attention layers, an encoder's layers and cross-attention, the chunked SSD
+scan for SSD layers); decode runs the cached attention and the SSD and
+RG-LRU recurrences in torch.  An encoder config (whisper) takes
+``frames``; the CLI gives it zeros, as the reference's does.  It runs on the card
 unless the caller asks for the CPU (``device="cpu"``); with no card and no
 such request it raises.
 
@@ -56,14 +58,18 @@ def _sync(device: torch.device) -> None:
 
 
 def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
-                greedy: bool = True, seed: int = 0, device=None
+                frames=None, greedy: bool = True, seed: int = 0, device=None
                 ) -> Tuple[np.ndarray, Dict[str, Any]]:
-    """prompts: (B, S) int32 → (B, gen_tokens) generated ids + stats.
+    """prompts: (B, S) int32 → (B, gen_tokens) generated ids + stats;
+    ``frames`` (B, F, D), an encoder config's frame embeddings.
 
-    ``params`` are moved to ``device`` (a no-op where they already are).
-    Times are host clocks around work that ends in a synchronize."""
+    ``params`` and ``frames`` are moved to ``device`` (a no-op where they
+    already are).  Times are host clocks around work that ends in a
+    synchronize."""
     device = resolve_device(device)
     params = _to(params, device)
+    if frames is not None:
+        frames = torch.as_tensor(frames).to(device)
     B, S = prompts.shape
     cache_len = S + gen_tokens
     tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
@@ -78,7 +84,8 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = T.prefill(cfg, params, tokens, cache_len=cache_len)
+        logits, cache = T.prefill(cfg, params, tokens, frames=frames,
+                                  cache_len=cache_len)
         tok = pick(logits)
         _sync(device)
         prefill_s = time.perf_counter() - t0
@@ -118,8 +125,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     params = T.init_params(cfg, gen, device)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
-    out, stats = serve_batch(cfg, params, prompts, args.gen, seed=args.seed,
-                             device=device)
+    frames = None
+    if cfg.encoder is not None:
+        frames = torch.zeros((args.batch, cfg.encoder.num_frames, cfg.d_model),
+                             dtype=T.dtype_of(cfg), device=device)
+    out, stats = serve_batch(cfg, params, prompts, args.gen, frames=frames,
+                             seed=args.seed, device=device)
     print(f"[serve] {cfg.name} on {stats['device']}: generated {out.shape} "
           f"prefill={stats['prefill_s']:.2f}s decode={stats['decode_s']:.2f}s "
           f"({stats['tokens_per_s']:.1f} tok/s)")

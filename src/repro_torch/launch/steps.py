@@ -108,7 +108,8 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch):
-        return TM.prefill(cfg, params, batch["tokens"])
+        return TM.prefill(cfg, params, batch["tokens"],
+                          frames=batch.get("frames"))
     return prefill_step
 
 

@@ -31,6 +31,7 @@ from ..configs import get_config
 from ..configs.reduced import reduced as make_reduced
 from ..data.pipeline import DataConfig, TokenSource
 from ..models.convert import stack_state, unstack_state
+from ..models.transformer import dtype_of
 from ..runtime.fault_tolerance import Coordinator, WorkerFailure
 from ..runtime.straggler import StragglerMitigator
 from . import steps as steps_lib
@@ -92,6 +93,10 @@ def train(run: TrainRun) -> Dict[str, Any]:
         taken.append((step, int(batch_np["tokens"].sum())))
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch_np.items()}
+        if cfg.encoder is not None:
+            batch["frames"] = torch.zeros(
+                (run.global_batch, cfg.encoder.num_frames, cfg.d_model),
+                dtype=dtype_of(cfg), device=device)
         state, metrics = train_step(state, batch)
         coord.heartbeat(0, step)
         loss = float(metrics["loss"])           # waits for the step

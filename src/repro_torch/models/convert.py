@@ -2,7 +2,9 @@
 
 The JAX model keeps the pattern slots stacked over the G scanned groups
 (``blocks/s{s}``, leading axis G) plus unrolled ``prefix{i}``/``tail{i}``
-layers; the port keeps one dict per layer in execution order.  The input
+layers; the port keeps one dict per layer in execution order.  An
+encoder's layers are stacked over their count in ``encoder/blocks`` in
+the reference and a list in ``encoder/layers`` in the port.  The input
 is the JAX pytree with its leaves as numpy arrays (``jax.tree.map(
 np.asarray, tree)``), so this module needs no JAX.  ``dense`` weights keep
 their (din, dout) orientation.  bfloat16 leaves arrive as
@@ -42,6 +44,8 @@ def to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
 def _map(tree: Any, fn) -> Any:
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -64,10 +68,22 @@ def params_from_jax(cfg: ArchConfig, params_np: Dict[str, Any],
     conv = lambda a: to_torch(a, device)               # noqa: E731
     out: Dict[str, Any] = {
         k: _map(params_np[k], conv)
-        for k in ("embed", "final_norm", "unembed") if k in params_np}
+        for k in ("embed", "final_norm", "unembed", "pos_embed")
+        if k in params_np}
     out["layers"] = [_map(layer, conv)
                      for layer in unstack_layers(cfg, params_np)]
+    if "encoder" in params_np:
+        out["encoder"] = _map(_unstack_encoder(cfg, params_np["encoder"]),
+                              conv)
     return out
+
+
+def _unstack_encoder(cfg: ArchConfig, enc: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"blocks": stacked over the encoder's layers, "norm"}`` →
+    ``{"layers": [one subtree per layer], "norm"}`` (leaves as they are)."""
+    return {"layers": [_map(enc["blocks"], lambda a, i=i: a[i])
+                       for i in range(cfg.encoder.num_layers)],
+            "norm": enc["norm"]}
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +97,10 @@ def reference_path(cfg: ArchConfig, path: Tuple) -> Tuple[Tuple, Any]:
     """A port params path → (the reference's leaf path, the group index
     along its stacked axis, or None for an unstacked leaf).  ``("layers",
     i, *rest)`` maps to ``prefix{i}``, ``blocks/s{s}`` at group g, or
-    ``tail{j}``; other paths are the reference's already."""
+    ``tail{j}``; ``("encoder", "layers", i, *rest)`` to ``encoder/blocks``
+    at index i; other paths are the reference's already."""
+    if path[:2] == ("encoder", "layers"):
+        return ("encoder", "blocks") + tuple(path[3:]), path[2]
     if not path or path[0] != "layers":
         return tuple(path), None
     i, rest = path[1], tuple(path[2:])
@@ -102,6 +121,11 @@ def stack_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     layers = params["layers"]
     n_pre, p, G = len(cfg.prefix), len(cfg.pattern), cfg.pattern_groups
     out: Dict[str, Any] = {k: v for k, v in params.items() if k != "layers"}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": T.map(lambda *xs: torch.stack(xs),
+                                          *enc["layers"]),
+                          "norm": enc["norm"]}
     for i in range(n_pre):
         out[f"prefix{i}"] = layers[i]
     out["blocks"] = {
@@ -121,6 +145,9 @@ def unstack_params(cfg: ArchConfig, stacked: Dict[str, Any]) -> Dict[str, Any]:
     out: Dict[str, Any] = {k: v for k, v in stacked.items() if k not in names}
     out["layers"] = [T.map(lambda a: a.clone(), layer)
                      for layer in unstack_layers(cfg, stacked)]
+    if "encoder" in stacked:
+        out["encoder"] = T.map(lambda a: a.clone(),
+                               _unstack_encoder(cfg, stacked["encoder"]))
     return out
 
 

@@ -91,6 +91,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def sinusoidal_embed(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) float32 positions: sin in the even columns, cos in the
+    odd ones (the encoder's)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((length, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 # ---------------------------------------------------------------------------
 # Dense projections: weights kept (din, dout), as in the reference
 # ---------------------------------------------------------------------------

@@ -338,6 +338,16 @@ FA_SHAPES = [
     (1, 2, 1, 70, 192, 64, False, None, 0.0, torch.bfloat16),
     (2, 4, 4, 100, 100, 32, True, 64, 0.0, torch.bfloat16),
     (1, 2, 2, 192, 192, 256, True, 100, 20.0, torch.bfloat16),
+    # the RG-LRU and encoder configs' prefill shapes: recurrentgemma-9b's
+    # local layer (MQA, group 16, hd 256, window 2048 at a 4096 prompt),
+    # whisper-small's encoder (non-causal, 1500 frames: a partial last kv
+    # tile) and its cross-attention (224 queries over 1500 frames)
+    (4, 16, 1, 4096, 4096, 256, True, 2048, 0.0, torch.float32),
+    (4, 16, 1, 4096, 4096, 256, True, 2048, 0.0, torch.bfloat16),
+    (8, 12, 12, 1500, 1500, 64, False, None, 0.0, torch.float32),
+    (8, 12, 12, 1500, 1500, 64, False, None, 0.0, torch.bfloat16),
+    (8, 12, 12, 224, 1500, 64, False, None, 0.0, torch.float32),
+    (8, 12, 12, 224, 1500, 64, False, None, 0.0, torch.bfloat16),
 ]
 
 
@@ -503,11 +513,14 @@ def test_cuda_lm_launch_counters(cuda):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m",
                                   "chameleon-34b", "llama4-maverick-400b-a17b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "recurrentgemma-9b",
+                                  "whisper-small"])
 def test_cuda_reduced_prefill_matches_cpu(cuda, arch):
     """Reduced model (head_dim 32: the kernel takes 32..256), float32:
     prefill and two decode steps on the card equal the same weights on the
-    CPU, and the prefill went through the kernel of its mixer."""
+    CPU (recurrentgemma's ring caches wrap: prompt 40, window 8), and the
+    prefill went through the kernel of its mixer once per attention layer
+    (whisper: encoder layers, decoder layers and their cross-attention)."""
     import dataclasses
     cfg = reduced(get_config(arch))
     if cfg.ssd is None:
@@ -516,11 +529,18 @@ def test_cuda_reduced_prefill_matches_cpu(cuda, arch):
     dparams = _to_device(params, cuda)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    frames = None
+    if cfg.encoder is not None:
+        frames = torch.randn((2, cfg.encoder.num_frames, cfg.d_model),
+                             generator=torch.Generator().manual_seed(1))
     fa.reset_launches()
     ss.reset_launches()
     with torch.inference_mode():
-        want, wcache = TT.prefill(cfg, params, tokens, cache_len=42)
-        got, gcache = TT.prefill(cfg, dparams, tokens.to(cuda), cache_len=42)
+        want, wcache = TT.prefill(cfg, params, tokens, frames=frames,
+                                  cache_len=42)
+        got, gcache = TT.prefill(
+            cfg, dparams, tokens.to(cuda), cache_len=42,
+            frames=None if frames is None else frames.to(cuda))
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
         for i in range(2):
             tok = torch.argmax(want, -1)[:, None].to(torch.int32)
@@ -528,9 +548,36 @@ def test_cuda_reduced_prefill_matches_cpu(cuda, arch):
             got, gcache = TT.decode_step(cfg, dparams, gcache, tok.to(cuda),
                                          40 + i)
             torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
-    launched = (ss.LAUNCHES["ssd_scan"] if cfg.ssd
-                else fa.LAUNCHES["flash_attention"])
-    assert launched == cfg.num_layers
+    if cfg.ssd:
+        assert ss.LAUNCHES["ssd_scan"] == cfg.num_layers
+    else:
+        attn = sum(s.mixer in ("attn", "mla") for s in cfg.all_specs)
+        if cfg.encoder is not None:
+            attn += cfg.encoder.num_layers + cfg.num_layers
+        assert fa.LAUNCHES["flash_attention"] == attn
+
+
+def test_cuda_rglru_block_matches_cpu(cuda):
+    """The RG-LRU block at recurrentgemma-9b's width (4096) over a prompt
+    of 512 on the card against the CPU, float32: the log-depth scan, its
+    state, and decode steps from that state, within 1e-4."""
+    from repro_torch.models import rglru as TR
+    p = TR.rglru_init(torch.Generator().manual_seed(0), 256, width=4096,
+                      conv_width=4, dtype=torch.float32)
+    dp = _to_device(p, cuda)
+    x = torch.randn((2, 520, 256), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want, wst = TR.rglru_block(p, x[:, :512], return_final_state=True)
+        got, gst = TR.rglru_block(dp, x[:, :512].to(cuda),
+                                  return_final_state=True)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for t in range(512, 520):
+            want, wst = TR.rglru_block(p, x[:, t:t + 1], state=wst)
+            got, gst = TR.rglru_block(dp, x[:, t:t + 1].to(cuda), state=gst)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for k in ("h", "conv"):
+            torch.testing.assert_close(gst[k].cpu(), wst[k], atol=1e-4,
+                                       rtol=1e-4)
 
 
 def _to_device(tree, device):

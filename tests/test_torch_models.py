@@ -4,9 +4,15 @@ Every config the port runs, reduced, in float32 — among them internlm2-1.8b
 (dense GQA attention), mamba2-370m (SSD), chameleon-34b (qk-norm; its
 ``vq`` frontend is a stub in both packages), llama4-maverick (MoE every
 other layer, local and global NoPE layers) and deepseek-v2 (MLA, a dense
-prefix layer, then MoE; the MLA latent caches are compared too): weights from the JAX ``T.init_params`` carried across by
-``params_from_jax``; prefill and three decode steps compared on logits and
-caches within 1e-4, and greedy ``serve_batch`` tokens compared exactly.
+prefix layer, then MoE; the MLA latent caches are compared too),
+recurrentgemma-9b (RG-LRU layers and local attention over ring-buffered
+caches of ``window`` = 8 slots) and whisper-small (an encoder over 16
+seeded random frames, cross-attention, learned positions; each layer's
+cross K/V compared with its slice of the reference's stacked
+``cache["cross"]``): weights from the JAX ``T.init_params`` carried across
+by ``params_from_jax``; prefill and three decode steps compared on logits
+and caches within 1e-4, and greedy ``serve_batch`` tokens compared
+exactly.
 In the port the prefill mixers go through the kernels' plain versions
 (CPU tensors); in the reference they are the jnp paths the model layers
 call.
@@ -33,12 +39,29 @@ from repro_torch.models import transformer as TT  # noqa: E402
 
 ARCHS = ["internlm2-1.8b", "mamba2-370m", "gemma-7b", "gemma2-27b",
          "qwen1.5-110b", "chameleon-34b", "llama4-maverick-400b-a17b",
-         "deepseek-v2-236b"]
+         "deepseek-v2-236b", "recurrentgemma-9b", "whisper-small"]
 TOL = 1e-4
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _frames(cfg, B, seed=0):
+    """Seeded frame embeddings (B, F, D) for an encoder config, else
+    None, as numpy for both packages."""
+    if cfg.encoder is None:
+        return None
+    return (np.random.default_rng(seed).standard_normal(
+        (B, cfg.encoder.num_frames, cfg.d_model)) * 0.5).astype(np.float32)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -56,13 +79,21 @@ def _close(got, want, what):
 
 
 def _check_caches(cfg, jcache, tcache, what):
-    jlayers = convert.unstack_layers(cfg, _np(jcache))
+    """Per layer; the reference's stacked cross K/V ``cache["cross"]``
+    (num_layers, B, F, KV, hd) mapped onto each layer's ``["cross"]``."""
+    jcache = _np(jcache)
+    jlayers = convert.unstack_layers(cfg, jcache)
     assert len(jlayers) == len(tcache) == cfg.num_layers
     for i, (jl, tl) in enumerate(zip(jlayers, tcache)):
+        if "cross" in jcache:
+            jl = dict(jl, cross={w: jcache["cross"][w][i] for w in "kv"})
         assert sorted(jl) == sorted(tl)
         for key in jl:
-            assert tuple(tl[key].shape) == jl[key].shape, (what, i, key)
-            _close(tl[key].numpy(), jl[key], f"{what} layer {i} {key}")
+            pairs = ([(f"{key}/{w}", tl[key][w], jl[key][w]) for w in "kv"]
+                     if key == "cross" else [(key, tl[key], jl[key])])
+            for name, got, want in pairs:
+                assert tuple(got.shape) == want.shape, (what, i, name)
+                _close(got.numpy(), want, f"{what} layer {i} {name}")
 
 
 def test_port_config_registry_matches_reference():
@@ -84,12 +115,13 @@ def test_prefill_and_decode_match_reference(model):
     rng = np.random.default_rng(7)
     prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     feed = rng.integers(0, cfg.vocab_size, (B, steps), dtype=np.int32)
+    frames = _frames(cfg, B)
 
     jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt),
-                                 cache_len=S + steps)
+                                 frames=_j(frames), cache_len=S + steps)
     with torch.inference_mode():
         tlogits, tcache = TT.prefill(cfg, tparams, torch.from_numpy(prompt),
-                                     cache_len=S + steps)
+                                     frames=_t(frames), cache_len=S + steps)
     assert tuple(tlogits.shape) == (B, cfg.padded_vocab)
     _close(tlogits.numpy(), jlogits, "prefill logits")
     _check_caches(cfg, jcache, tcache, "prefill cache")
@@ -109,8 +141,10 @@ def test_serve_batch_greedy_tokens_equal_reference(model):
     cfg, params, tparams = model
     prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 20),
                                                 dtype=np.int32)
-    jgen, _ = jserve.serve_batch(cfg, params, prompts, 6)
-    tgen, stats = tserve.serve_batch(cfg, tparams, prompts, 6, device="cpu")
+    frames = _frames(cfg, 2, seed=3)
+    jgen, _ = jserve.serve_batch(cfg, params, prompts, 6, frames=_j(frames))
+    tgen, stats = tserve.serve_batch(cfg, tparams, prompts, 6,
+                                     frames=_t(frames), device="cpu")
     assert stats["device"] == "cpu"
     np.testing.assert_array_equal(tgen, jgen)
 
@@ -122,10 +156,13 @@ def test_prefill_pads_ssd_to_a_chunk_multiple(model):
     for S in (5, 21):
         prompt = np.random.default_rng(S).integers(
             0, cfg.vocab_size, (1, S), dtype=np.int32)
-        jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt))
+        frames = _frames(cfg, 1, seed=S)
+        jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt),
+                                     frames=_j(frames))
         with torch.inference_mode():
             tlogits, tcache = TT.prefill(cfg, tparams,
-                                         torch.from_numpy(prompt))
+                                         torch.from_numpy(prompt),
+                                         frames=_t(frames))
         _close(tlogits.numpy(), jlogits, f"prefill S={S}")
         _check_caches(cfg, jcache, tcache, f"prefill S={S} cache")
 
@@ -157,12 +194,80 @@ def test_params_from_jax_bf16_round_trip_is_bit_exact():
     ("whisper-small", None, None),                     # encoder
     ("internlm2-1.8b", "positional", "learned"),
 ])
-def test_unported_configs_raise(name, field, value):
-    cfg = tget_config(name)
-    if field is not None:
-        cfg = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_cache(treduced(cfg), 1, 4, "cpu")
+def test_variant_configs_match_reference(name, field, value):
+    """Configs the port once refused: prefill over a prompt longer than the
+    reduced window (8) and decode steps that pass it, logits and caches
+    against the reference's."""
+    change = {field: value} if field else {}
+    cfg = reduced(dataclasses.replace(get_config(name), **change))
+    tcfg = treduced(dataclasses.replace(tget_config(name), **change))
+    assert len(TT.init_cache(tcfg, 1, 4, "cpu")) == cfg.num_layers
+    params = JT.init_params(cfg, jax.random.PRNGKey(2))
+    tparams = convert.params_from_jax(cfg, _np(params))
+    B, S, steps = 2, 11, 2
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    frames = _frames(cfg, B, seed=17)
+    jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt),
+                                 frames=_j(frames), cache_len=S + steps)
+    with torch.inference_mode():
+        tlogits, tcache = TT.prefill(cfg, tparams, torch.from_numpy(prompt),
+                                     frames=_t(frames), cache_len=S + steps)
+    _close(tlogits.numpy(), jlogits, f"{name} prefill logits")
+    _check_caches(cfg, jcache, tcache, f"{name} prefill cache")
+    for i in range(steps):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+        jlogits, jcache = JT.decode_step(cfg, params, jcache,
+                                         jnp.asarray(tok), jnp.int32(S + i))
+        with torch.inference_mode():
+            tlogits, tcache = TT.decode_step(cfg, tparams, tcache,
+                                             torch.from_numpy(tok), S + i)
+        _close(tlogits.numpy(), jlogits, f"{name} decode step {i} logits")
+        _check_caches(cfg, jcache, tcache, f"{name} decode step {i} cache")
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-9b",
+                                  "llama4-maverick-400b-a17b"])
+def test_ring_cache_short_prompt_then_decode_across_the_wrap(name):
+    """A prompt shorter than the window (5 < 8) fills slots [0, 5) of the
+    ring; eight decode steps then write slots 5..7 and wrap to 0..4."""
+    cfg = reduced(dataclasses.replace(get_config(name),
+                                      windowed_local_cache=True))
+    params = JT.init_params(cfg, jax.random.PRNGKey(4))
+    tparams = convert.params_from_jax(cfg, _np(params))
+    B, S, steps = 2, 5, 8
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    jlogits, jcache = JT.prefill(cfg, params, jnp.asarray(prompt),
+                                 cache_len=S + steps)
+    with torch.inference_mode():
+        tlogits, tcache = TT.prefill(cfg, tparams, torch.from_numpy(prompt),
+                                     cache_len=S + steps)
+    ring = [c["k"].shape[1] for c, spec in zip(tcache, cfg.all_specs)
+            if spec.mixer == "attn" and spec.attn_kind == "local"]
+    assert ring and set(ring) == {cfg.sliding_window}
+    _check_caches(cfg, jcache, tcache, f"{name} prefill cache")
+    for i in range(steps):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1), dtype=np.int32)
+        jlogits, jcache = JT.decode_step(cfg, params, jcache,
+                                         jnp.asarray(tok), jnp.int32(S + i))
+        with torch.inference_mode():
+            tlogits, tcache = TT.decode_step(cfg, tparams, tcache,
+                                             torch.from_numpy(tok), S + i)
+        _close(tlogits.numpy(), jlogits, f"{name} decode step {i} logits")
+    _check_caches(cfg, jcache, tcache, f"{name} cache after the wrap")
+
+
+def test_unknown_kinds_raise():
+    cfg = treduced(tget_config("internlm2-1.8b"))
+    for field, value, what in (("positional", "alibi", "positions"),
+                               ("pattern", (dataclasses.replace(
+                                   cfg.pattern[0], mixer="lstm"),), "mixer"),
+                               ("pattern", (dataclasses.replace(
+                                   cfg.pattern[0], ffn="glu2"),), "ffn")):
+        with pytest.raises(ValueError, match=what):
+            TT.init_cache(dataclasses.replace(cfg, **{field: value}), 1, 4,
+                          "cpu")
 
 
 def test_train_forward_matches_reference(model):
@@ -170,9 +275,12 @@ def test_train_forward_matches_reference(model):
     cfg, params, tparams = model
     tokens = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 19),
                                                 dtype=np.int32)
-    jlogits, _, _ = JT.forward(cfg, params, jnp.asarray(tokens))
+    frames = _frames(cfg, 2, seed=11)
+    jlogits, _, _ = JT.forward(cfg, params, jnp.asarray(tokens),
+                               frames=_j(frames))
     with torch.inference_mode():
-        tlogits, tcache = TT.forward(cfg, tparams, torch.from_numpy(tokens))
+        tlogits, tcache = TT.forward(cfg, tparams, torch.from_numpy(tokens),
+                                     frames=_t(frames))
     assert tcache is None
     _close(tlogits.numpy(), jlogits, "train forward logits")
 
@@ -263,3 +371,25 @@ def test_ssd_block_hands_the_kernel_aligned_views(monkeypatch):
         == [0, 4096, 4352]
     with pytest.raises(ValueError, match="CUDA tensor"):
         tk.check_inputs(xs, dt, A, Bm, Cm, s.chunk)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
+def test_phase14_decode_check_dry_run(arch):
+    """``chip_smoke.py`` phase 14's decode-against-prefill check on the CPU
+    at ``reduced()`` size in float32, with the reference's weights: the
+    ring (window 8) wraps during the 10 decode steps after a prompt of 6,
+    and whisper's decode reads its cached cross K/V; steps 0 and 9 within
+    1e-3 of the logits' max-abs."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    cfg = reduced(get_config(arch))
+    tparams = convert.params_from_jax(
+        cfg, _np(JT.init_params(cfg, jax.random.PRNGKey(14))))
+    frames = _t(_frames(cfg, 2, seed=14))
+    worst = chip_smoke.p14_decode_check(torch, np, TT, cfg, tparams,
+                                        (2, 6, 10), "float32", frames=frames)
+    assert 0 <= worst <= 1e-3

@@ -109,6 +109,58 @@ def test_loss_and_every_gradient_leaf_match_reference(model):
     assert all(bool(g.abs().sum() > 0) for g in tree.leaves(grads))
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
+def test_rglru_and_encoder_loss_and_gradients_match_reference(arch):
+    """recurrentgemma-9b (the RG-LRU scan's gradient from autograd, ring
+    caches play no part in training) and whisper-small (the encoder, its
+    cross-attention and learned positions, with seeded frames): the loss
+    and every gradient leaf against ``jax.grad`` of the reference's
+    ``loss_fn``, with remat on as configured."""
+    cfg = reduced(get_config(arch))
+    params = JT.init_params(cfg, jax.random.PRNGKey(3))
+    batch = _batch(cfg, seed=3)
+    if cfg.encoder is not None:
+        batch["frames"] = (np.random.default_rng(3).standard_normal(
+            (4, cfg.encoder.num_frames, cfg.d_model)) * 0.5).astype(np.float32)
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: JT.loss_fn(cfg, p, jax.tree.map(jnp.asarray, batch)),
+        has_aux=True)(params)
+    tparams = _port_state(cfg, {"params": params})["params"]
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    assert cfg.remat
+    loss, _, grads = TS.value_and_grad(cfg, tparams, tbatch)
+    assert abs(float(loss) - float(jloss)) <= 1e-5
+    _compare_trees(cfg, jgrads, grads, GRAD_ABS, GRAD_REL_RMS, "grad")
+    assert all(bool(g.abs().sum() > 0) for g in tree.leaves(grads))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
+def test_rglru_and_encoder_checkpoints_are_the_references_file_for_file(
+        tmp_path, arch):
+    """The RG-LRU leaves (``lam`` float32 in bf16 params), the encoder's
+    stacked blocks and ``pos_embed`` checkpoint to the reference's files
+    and restore in the port."""
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              param_dtype="bfloat16")
+    jopt = JS.make_optimizer(cfg)
+    jstate = JS.init_train_state(cfg, jax.random.PRNGKey(2), jopt)
+    tstate = _port_state(cfg, jstate)
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "torch")
+    JCk.save_checkpoint(jd, 1, jstate)
+    TCk.save_checkpoint(td, 1, convert.stack_state(cfg, tstate))
+    assert _manifest(td, 1) == _manifest(jd, 1)
+    for rec in _manifest(jd, 1)["leaves"]:
+        assert (Path(jd, "step_00000001", rec["file"]).read_bytes()
+                == Path(td, "step_00000001", rec["file"]).read_bytes()), \
+            rec["path"]
+    stacked, _, _ = TCk.restore_checkpoint(jd,
+                                           convert.stack_state(cfg, tstate))
+    back = convert.unstack_state(cfg, stacked)
+    for (p, a), (_, b) in zip(tree.flatten_with_paths(back),
+                              tree.flatten_with_paths(tstate)):
+        assert a.dtype == b.dtype and torch.equal(a, b), p
+
+
 def test_remat_changes_nothing_but_memory(model):
     cfg, params = model
     tparams = _port_state(cfg, {"params": params})["params"]
