@@ -157,7 +157,26 @@ Phases (any failure exits non-zero before the result line):
    ``serve_batch`` at batch 8, prompt 224, 32 tokens over seeded random
    frames (8, 1500, 768), flash launched 36 times a prefill (12 encoder,
    12 decoder self-attention, 12 cross-attention), decode against prefill
-   within phase 7's limits.
+   within phase 7's limits;
+15. the SPMD layer, flash decode and the "dots" remat policy, for
+   internlm2-1.8b in bf16 at full width and depth: (a) 32 decode steps
+   over a 32,768-slot cache (batch 8, a prompt of 32,736) with flash
+   decode off and then on (a fresh prefill, the first run's tokens fed),
+   tokens/s of each and the two routes' logits within phase 7's bf16
+   limit at its gated steps; (b) train steps (batch 4 × 2048) under
+   ``remat_policy`` "full" and "dots" from one seeded state: step seconds,
+   peak memory, the first loss equal, flash launches per step as phase
+   12's; (c) the dry run on the fake 256-rank world (no card needed):
+   internlm2-1.8b decode_32k, mamba2-370m train_4k and
+   llama4-maverick-400b-a17b train_4k cut to 4 layers (6 all-to-alls over
+   "model" per MoE layer and microbatch), and ``advise`` with its default
+   scorer; (d) a one-rank NCCL world and a real (1, 1) ``DeviceMesh``:
+   ``serve_batch`` at phase 7's shape with the parameters distributed by
+   the sharding rules as DTensors, its greedy ids equal to phase 7's and
+   24 flash launches in its prefill; the dry run of that prefill on a
+   one-rank fake mesh beside the measured prefill seconds; and the
+   kernels' custom ops against their bare launchers, host microseconds a
+   call.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -170,8 +189,10 @@ kernels, equal to the counts a CPU dry run of its steps predicts) and
 phase 12's train steps (each LM's kernel and its backward recomputes,
 per step equal to a CPU dry run's), phase 13 (a) (the hash-partition
 kernels), each of phase 13's serves (flash attention, once per layer in
-the prefill) and each of phase 14's (flash attention: 12 per
-recurrentgemma-9b prefill, 36 per whisper-small prefill).
+the prefill), each of phase 14's (flash attention: 12 per
+recurrentgemma-9b prefill, 36 per whisper-small prefill) and each part of
+phase 15 that runs the card (flash attention: 24 per prefill of (a), 48
+per train step of (b), 24 in (d)'s prefill).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -674,6 +695,7 @@ def attention_dropping(torch, q, k, v, keys):
 
 
 def run_flash(torch, fa, fa_ref, card):
+    from repro_torch.kernels.cost import flash_attention_cost
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -736,8 +758,8 @@ def run_flash(torch, fa, fa_ref, card):
     torch.cuda.empty_cache()
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     # every (q, k) pair with k <= q: 2 FLOPs a multiply-add, QK^T and PV
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
-    nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    flops, nbytes = flash_attention_cost(B, H, KV, S, S, hd, True, None,
+                                         q.element_size())
     row = {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": REPLACES["flash_attention"], "launches": 0,
@@ -848,6 +870,7 @@ def check_ssd(torch, ss, ss_ref, args, chunk, dname, what):
 
 
 def run_ssd(torch, ss, ss_ref, card):
+    from repro_torch.kernels.cost import ssd_scan_cost
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     for decay, cases in (("fast", SSD_CASES), ("slow", SSD_SLOW_CASES)):
@@ -887,23 +910,17 @@ def run_ssd(torch, ss, ss_ref, card):
     torch.cuda.empty_cache()
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     nc = T // L
-    tri = L * (L + 1) / 2
     # causal work: C B^T's lower triangle once per (batch row, chunk), shared
     # by the heads; per head: W.x over the triangle, C.state^T, the state
     # update; 2 FLOPs a multiply-add
-    flops = 2.0 * (B * nc * tri * N
-                   + B * H * nc * (tri * P + L * N * P + P * N * L))
+    flops, nbytes = ssd_scan_cost(B, T, H, P, N, L, args[0].element_size(),
+                                  args[1].element_size())
     # tile-granular work of 64-row tiles, C B^T per head: per (batch row,
     # head, chunk) the 10 tile pairs j <= i of S and W.x, C.state^T and the
     # state update
     nt = L // 64
     tile_flops = 2.0 * B * H * nc * (nt * (nt + 1) / 2 * 64 * 64 * (N + P)
                                      + 2 * L * P * N)
-    nbytes = (2 * B * T * H * P        # x in (bf16)
-              + 2 * 2 * B * T * N      # B and C in
-              + 4 * B * T * H + 4 * H  # dt and A (float32)
-              + 2 * B * T * H * P      # y out
-              + 2 * B * H * P * N)     # final state out
     row = {
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": REPLACES["ssd_scan"], "launches": 0,
@@ -960,11 +977,12 @@ def device_busy(torch, fn):
 
 def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
     """``serve_batch`` at full width with seeded random weights, in bf16 (the
-    timed run) and in float32; returns each run's launch counts."""
+    timed run) and in float32; returns each run's launch counts and its
+    generated ids."""
     import dataclasses
     dev = torch.device("cuda")
     device_busy(torch, lambda: torch.ones(1, device=dev) + 1)  # tracer start-up
-    launches = {}
+    launches, generated = {}, {}
     for dtype, (positions, limit) in DECODE_CHECKS.items():
         cfg = dataclasses.replace(get_config(arch), param_dtype=dtype)
         t0 = time.perf_counter()
@@ -994,6 +1012,7 @@ def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
         if out.shape != (SERVE_BATCH, GEN) or out.min() < 0 \
                 or out.max() >= cfg.vocab_size:
             raise AssertionError(f"{arch}: bad generated ids {out.shape}")
+        generated[dtype] = out
         # the decode path again over serve's tokens, prefill and steps 1-2
         # traced, keeping the logits of the steps checked below
         kept, traced, step_busy, step_wall = {}, Counter(), 0.0, 0.0
@@ -1054,7 +1073,7 @@ def run_serve(torch, np, arch, phase, counters, T, serve, get_config):
                                      f"logits differ from prefill by {err}")
         del params, kept, stats
         torch.cuda.empty_cache()
-    return launches
+    return launches, generated
 
 
 # -- phase 9: the durable store and the history → advisor loop at SF 10 --------
@@ -3287,27 +3306,18 @@ P14_RG_DEPTH = 5
 P14_RG_CHECKS = ((4, 2040, 16), (4, 4096, 8))
 
 
-def attention_pairs(Sq, Skv, causal, window) -> int:
-    """The (query, key) pairs a mask keeps, queries at positions 0..Sq-1."""
-    pairs = 0
-    for q in range(Sq):
-        hi = min(q + 1, Skv) if causal else Skv
-        lo = max(0, q - window + 1) if window is not None else 0
-        pairs += max(0, hi - lo)
-    return pairs
-
-
 def p14_flash(torch, fa, fa_ref, card):
     """(a) The flash kernel at the three new shapes, float32 and bf16,
     held to the plain twin within phase 5's limits and timed beside the
     twin and one SDPA call on the same tensors; returns the bf16 rows."""
+    from repro_torch.kernels.cost import (attention_pairs,
+                                          flash_attention_cost)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     rows = {}
     for what, (B, H, KV, Sq, Skv, hd, causal, window) in P14_FLASH:
         pairs = attention_pairs(Sq, Skv, causal, window)
-        flops = 4.0 * hd * pairs * B * H
         mask = None
         if window is not None:
             qp = torch.arange(Sq, device=dev)[:, None]
@@ -3330,8 +3340,9 @@ def p14_flash(torch, fa, fa_ref, card):
                                      f"{RMS_LIMIT}")
             del got, want
             torch.cuda.empty_cache()
-            nbytes = q.element_size() * (2 * B * H * Sq * hd
-                                         + 2 * B * KV * Skv * hd)
+            flops, nbytes = flash_attention_cost(B, H, KV, Sq, Skv, hd,
+                                                 causal, window,
+                                                 q.element_size())
             peak = BF16_FLOP_PER_S if dname == "bfloat16" else F32_FLOP_PER_S
             bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
             row = {
@@ -3574,6 +3585,306 @@ def p14_whisper(torch, np, T, serve, get_config, counters, fa, card):
     return launched
 
 
+# -- phase 15: the SPMD layer, flash decode and the "dots" remat policy ---------
+
+P15_ARCH = "internlm2-1.8b"
+#: (a) batch, cache slots (decode_32k's length, past the flash-decode
+#: threshold), decode steps
+P15_DECODE = (8, 32768, 32)
+#: (b) batch, sequence, train steps per remat policy
+P15_TRAIN = (4, 2048, 3)
+#: (c) the dry run's cells on the fake 256-rank world: (arch, shape,
+#: extra_cfg); llama4-maverick cut to its first period (4 layers, 2 MoE)
+P15_CELLS = (("internlm2-1.8b", "decode_32k", None),
+             ("mamba2-370m", "train_4k", None),
+             ("llama4-maverick-400b-a17b", "train_4k", {"num_layers": 4}))
+#: all-to-alls over "model" per MoE layer and microbatch in a train step:
+#: two in the forward, two in its checkpointed recompute, two backward
+P15_EXCHANGES = 6
+#: calls timed for the custom-op overhead, and the shapes (launch-bound)
+P15_OP_CALLS = 2000
+
+
+def p15_flash_decode(torch, np, T, L, get_config, counters, fa, card):
+    """(a) internlm2-1.8b, bf16, full width and depth: a prompt of
+    32768 - 32 tokens prefilled into a 32768-slot cache, then 32 decode
+    steps with flash decode off, and again from a fresh prefill with it on,
+    fed the first run's greedy tokens; tokens/s of each, and the logits of
+    the two routes held to each other at phase 7's gated steps within its
+    bf16 limit (the rest printed as drift).  Returns flash launches."""
+    import dataclasses
+    dev = torch.device("cuda")
+    B, Lc, steps = P15_DECODE
+    cfg = dataclasses.replace(get_config(P15_ARCH), param_dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    prompt = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (B, Lc - steps), dtype=np.int32)).to(dev)
+    positions, limit = DECODE_CHECKS["bfloat16"]
+    feed, logits, launched = None, {}, 0
+    for route in ("sdpa", "flash_decode"):
+        L.FLASH_DECODE_ENABLED = route == "flash_decode"
+        try:
+            for reset, _ in counters:
+                reset()
+            with torch.inference_mode():
+                lg, cache = T.prefill(cfg, params, prompt, cache_len=Lc)
+                launched += fa.LAUNCHES["flash_attention"]
+                tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+                toks, kept = [], []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(steps):
+                    cur = tok if feed is None else feed[i]
+                    toks.append(cur)
+                    lg, cache = T.decode_step(cfg, params, cache, cur,
+                                              Lc - steps + i)
+                    kept.append(lg)
+                    tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+                torch.cuda.synchronize()
+                decode_s = time.perf_counter() - t0
+        finally:
+            L.FLASH_DECODE_ENABLED = False
+        feed = toks if feed is None else feed
+        logits[route] = kept
+        print(f"phase 15: (a) {P15_ARCH} bf16 batch={B} cache={Lc} {route}: "
+              f"{steps} decode steps in {decode_s:.4f} s, "
+              f"decode_tokens_per_s={B * steps / decode_s:.1f} on {card}",
+              flush=True)
+        del cache
+        torch.cuda.empty_cache()
+    for i in range(steps):
+        want = logits["sdpa"][i][:, :cfg.vocab_size].float()
+        got = logits["flash_decode"][i][:, :cfg.vocab_size].float()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        gated = i in positions
+        if gated or i == steps - 1:
+            print(f"phase 15: (a) decode step {i} flash_decode vs sdpa: "
+                  f"max_abs_err={err:.4e} (logits max-abs {scale:.4e}; "
+                  + (f"limit {limit} of it)" if gated else
+                     "drift, not a check)"), flush=True)
+        if gated and not (math.isfinite(err) and err <= limit * scale):
+            raise AssertionError(f"flash decode step {i}: logits differ "
+                                 f"from sdpa by {err}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launched
+
+
+def p15_remat(torch, np, get_config, counters, fa, card):
+    """(b) internlm2-1.8b, bf16, batch 4 × 2048: train steps from the same
+    seeded state under ``remat_policy`` "full" and "dots"; step seconds and
+    peak memory of each, the first step's loss equal across the two, and
+    flash launches per step equal to phase 12's count.  Returns the
+    launches."""
+    import dataclasses
+
+    from repro_torch.launch import steps as S
+    dev = torch.device("cuda")
+    B, Sq, n = P15_TRAIN
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(0, get_config(P15_ARCH).vocab_size,
+                                         (B, Sq), dtype=np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    first, launched = {}, 0
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(get_config(P15_ARCH),
+                                  param_dtype="bfloat16",
+                                  remat_policy=policy)
+        opt = S.make_optimizer(cfg, total_steps=n)
+        state = S.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), opt, device=dev)
+        step = S.make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for reset, _ in counters:
+            reset()
+        times, losses = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = fa.LAUNCHES["flash_attention"] / n
+        launched += fa.LAUNCHES["flash_attention"]
+        first[policy] = losses[0]
+        print(f"phase 15: (b) {P15_ARCH} bf16 B={B} S={Sq} remat_policy="
+              f"{policy}: losses {[round(v, 6) for v in losses]}; step_s "
+              f"after the first {sum(times[1:]) / (n - 1):.4f} (first "
+              f"{times[0]:.4f}); max_memory_allocated={peak} B; flash "
+              f"launches per step {per_step} on {card}", flush=True)
+        if per_step != P12_LAUNCHES[P15_ARCH]["launches"]:
+            raise AssertionError(f"remat {policy}: {per_step} flash launches "
+                                 "a step, phase 12 counts "
+                                 f"{P12_LAUNCHES[P15_ARCH]['launches']}")
+        del state, step, opt
+        torch.cuda.empty_cache()
+    if first["full"] != first["dots"]:
+        raise AssertionError(f"the first step's loss differs: {first}")
+    return launched
+
+
+def p15_dry_run(card):
+    """(c) ``analyze_cell`` on the fake 256-rank world for the cells of
+    :data:`P15_CELLS` (the MoE exchange counted), and ``advise`` with its
+    default scorer; prints each record's terms and trace seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharding_advisor
+    from repro_torch.launch import dryrun
+    for arch, shape, extra in P15_CELLS:
+        rec = dryrun.analyze_cell(arch, shape, extra_cfg=extra,
+                                  verbose=False)
+        coll = {k: int(v["count"]) for k, v in rec["collectives"].items()}
+        print(f"phase 15: (c) dry run {arch} {shape} {extra or ''} on "
+              f"{rec['mesh']}: flops/device={rec['flops_per_device']:.4e} "
+              f"bytes/device={rec['bytes_per_device']:.4e} collective "
+              f"bytes/device={rec['collective_bytes_per_device']:.4e} "
+              f"compute_s={rec['compute_s']:.4e} memory_s="
+              f"{rec['memory_s']:.4e} collective_s={rec['collective_s']:.4e} "
+              f"(nvlink {rec['collective_nvlink_s']:.4e}, network "
+              f"{rec['collective_network_s']:.4e}) bottleneck="
+              f"{rec['bottleneck']} collectives={coll} kernel_calls="
+              f"{rec['kernel_calls']} temp_bytes="
+              f"{rec['memory_analysis']['temp_bytes']} trace_s="
+              f"{rec['compile_s']}", flush=True)
+        if extra:
+            cfg = dataclasses.replace(get_config(arch), **extra)
+            moe = sum(s.ffn == "moe" for s in cfg.all_specs)
+            want = P15_EXCHANGES * moe * cfg.accum_steps
+            got = rec["collective_ops"].get("all_to_all_single", 0)
+            if got != want:
+                raise AssertionError(f"{arch}: {got} expert exchanges "
+                                     f"(all_to_all_single), {want} expected")
+    t0 = time.perf_counter()
+    dec = sharding_advisor.advise(P15_ARCH, "decode_32k")
+    if len(dec.trail) != 3 or any("error" in t for t in dec.trail):
+        raise AssertionError(f"advise: a candidate failed: {dec.trail}")
+    print(f"phase 15: (c) advise({P15_ARCH}, decode_32k) with the default "
+          f"scorer: winner {dec.winner.name}, dominant term "
+          f"{dec.dominant_term_s:.4e} s; trail "
+          + "; ".join(f"{t['candidate']} {t['bottleneck']} "
+                      f"{sharding_advisor.dominant_term(t):.4e} s"
+                      for t in dec.trail)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def p15_one_rank(torch, np, T, get_config, counters, fa, p7_ids, card):
+    """(d) a one-rank NCCL world and a real (1, 1) ``DeviceMesh`` on the
+    card: internlm2-1.8b's bf16 parameters (phase 7's seed) distributed by
+    the rules, ``serve_batch`` at phase 7's shape; its greedy ids must
+    equal phase 7's and its prefill must launch flash once per layer.
+    Then ``analyze_cell`` for the same prefill on a one-rank fake mesh,
+    its dominant term beside the measured ``prefill_s``.  Returns the
+    flash launches."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, serve, shardings
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(P15_ARCH), param_dtype="bfloat16")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), dtype=np.int32)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        params = T.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        dparams = shardings.distribute(
+            mesh, params, shardings.param_pspecs(cfg, params, mesh))
+        del params
+        for reset, _ in counters:
+            reset()
+        out, stats = serve.serve_batch(cfg, dparams, prompts, GEN,
+                                       device=dev)
+        launched = fa.LAUNCHES["flash_attention"]
+        del dparams
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    same = p7_ids is not None and np.array_equal(out, p7_ids)
+    print(f"phase 15: (d) {P15_ARCH} bf16 serve_batch on a one-rank NCCL "
+          f"(1, 1) DeviceMesh, DTensor parameters: batch={SERVE_BATCH} "
+          f"prompt={PROMPT_LEN} gen={GEN}: prefill_s="
+          f"{stats['prefill_s']:.4f} decode_tokens_per_s="
+          f"{stats['tokens_per_s']:.1f}; greedy ids equal phase 7's: {same}; "
+          f"flash launches {launched} on {card}", flush=True)
+    if not same:
+        raise AssertionError("DTensor serve_batch ids differ from phase 7's")
+    if launched != cfg.num_layers:
+        raise AssertionError(f"DTensor prefill launched flash {launched} "
+                             f"times, not once per layer ({cfg.num_layers})")
+    shape = ShapeSpec(f"prefill_{PROMPT_LEN}", PROMPT_LEN, SERVE_BATCH,
+                      "prefill")
+    with fake_world(1):
+        rec = dryrun.analyze_cell(P15_ARCH, shape, mesh=make_mesh(
+            (1, 1), ("data", "model")), verbose=False)
+    terms = {k: rec[k] for k in ("compute_s", "memory_s", "collective_s")}
+    print(f"phase 15: (d) dry run of that prefill on a one-rank fake mesh: "
+          f"{terms}, dominant {rec['bottleneck']} "
+          f"{max(terms.values()):.4f} s against the measured prefill_s "
+          f"{stats['prefill_s']:.4f} s (flops {rec['flops_per_device']:.4e}, "
+          f"bytes {rec['bytes_per_device']:.4e}, trace_s "
+          f"{rec['compile_s']}) on {card}", flush=True)
+    return launched
+
+
+def p15_op_overhead(torch, fa, ss, card):
+    """The kernels' custom ops against their bare launchers at launch-bound
+    shapes: host microseconds a call over :data:`P15_OP_CALLS` calls."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn((1, 1, 128, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    x = torch.randn((1, 64, 2, 16), generator=g, device=dev)
+    dt = torch.rand((1, 64, 2), generator=g, device=dev) * 0.1
+    A = -torch.rand((2,), generator=g, device=dev)
+    Bm = torch.randn((1, 64, 16), generator=g, device=dev)
+    pairs = {
+        "flash_attention": (
+            lambda: fa.flash_attention(q, k, v, causal=True),
+            lambda: fa_ops.flash_attention_op(q, k, v, True, None, 0.0,
+                                              None)),
+        "ssd_scan": (lambda: ss.ssd_scan(x, dt, A, Bm, Bm, 64),
+                     lambda: ss_ops.ssd_scan_op(x, dt, A, Bm, Bm, 64))}
+    rows = {}
+    for name, (bare, op) in pairs.items():
+        us = {}
+        for _ in range(2):                      # bare, op, bare, op
+            for what, fn in (("bare", bare), ("op", op)):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(P15_OP_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                us.setdefault(what, []).append(
+                    (time.perf_counter() - t0) / P15_OP_CALLS * 1e6)
+        rows[name] = {w: min(v) for w, v in us.items()}
+        print(f"phase 15: custom-op overhead {name}: bare launcher "
+              f"{rows[name]['bare']:.2f} us a call, custom op "
+              f"{rows[name]['op']:.2f} us a call (+"
+              f"{rows[name]['op'] - rows[name]['bare']:.2f} us), best of 2 "
+              f"runs of {P15_OP_CALLS} calls, host clock, on {card}",
+              flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3655,12 +3966,15 @@ def main() -> int:
     counters = [(hp.reset_launches, hp.LAUNCHES),
                 (fa.reset_launches, fa.LAUNCHES),
                 (ss.reset_launches, ss.LAUNCHES)]
+    p7_ids = None
     for phase, arch, kernel, layers in ((7, "internlm2-1.8b",
                                          "flash_attention", 24),
                                         (8, "mamba2-370m", "ssd_scan", 48)):
         tp = time.perf_counter()
-        served = run_serve(torch, np, arch, phase, counters, T, serve,
-                           get_config)
+        served, ids = run_serve(torch, np, arch, phase, counters, T, serve,
+                                get_config)
+        if phase == 7:
+            p7_ids = ids["bfloat16"]
         for dtype, counts in served.items():
             if counts[kernel] != layers:
                 return fail(f"{arch} {dtype}: {kernel} launched "
@@ -3747,6 +4061,30 @@ def main() -> int:
     print(f"phase 14 (d): done in {time.perf_counter() - tp:.1f} s",
           flush=True)
     print(f"phase 14: done in {time.perf_counter() - t14:.1f} s on {card}",
+          flush=True)
+
+    from repro_torch.models import layers as L
+    t15 = time.perf_counter()
+    launches["flash_attention"] += p15_flash_decode(
+        torch, np, T, L, get_config, counters, fa, card)
+    print(f"phase 15 (a): done in {time.perf_counter() - t15:.1f} s",
+          flush=True)
+    tp = time.perf_counter()
+    launches["flash_attention"] += p15_remat(torch, np, get_config, counters,
+                                             fa, card)
+    print(f"phase 15 (b): done in {time.perf_counter() - tp:.1f} s",
+          flush=True)
+    tp = time.perf_counter()
+    p15_dry_run(card)
+    print(f"phase 15 (c): done in {time.perf_counter() - tp:.1f} s",
+          flush=True)
+    tp = time.perf_counter()
+    launches["flash_attention"] += p15_one_rank(
+        torch, np, T, get_config, counters, fa, p7_ids, card)
+    p15_op_overhead(torch, fa, ss, card)
+    print(f"phase 15 (d): done in {time.perf_counter() - tp:.1f} s",
+          flush=True)
+    print(f"phase 15: done in {time.perf_counter() - t15:.1f} s on {card}",
           flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]

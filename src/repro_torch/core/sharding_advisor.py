@@ -7,10 +7,9 @@ statistics" the roofline terms of each variant, and the selector Eq. 2's
 argmin over the dominant term.  The decision keeps every candidate's
 record, so it is auditable the way a ``PartitioningDecision`` is.
 
-The reference's default scorer is ``launch/dryrun.analyze_cell``, a
-roofline read off XLA's compiled HLO for a mesh of fake TPU devices; it
-exists only under XLA and has no counterpart here.  :func:`advise`
-therefore takes ``analyze`` from the caller and raises without one.
+The default scorer is the port's ``launch/dryrun.analyze_cell``, as the
+reference's is its own: a roofline of one traced step on a fake world of
+256 (512) ranks, read off the ops each rank runs.
 """
 
 from __future__ import annotations
@@ -60,14 +59,12 @@ def advise(arch: str, shape: str, *, multi_pod: bool = False,
            analyze=None) -> ShardingDecision:
     """Score every candidate with ``analyze(arch, shape, multi_pod=,
     extra_cfg=, variant=, verbose=)`` (a dict with ``compute_s``,
-    ``memory_s`` and ``collective_s``) and return the argmin of the
+    ``memory_s`` and ``collective_s``; by default the dry run's
+    ``analyze_cell``, which needs no card) and return the argmin of the
     dominant term; a candidate whose scoring raises is recorded and
     skipped."""
     if analyze is None:
-        raise ValueError(
-            "advise needs analyze=: the reference's default, "
-            "launch/dryrun.analyze_cell, reads a roofline off XLA's compiled "
-            "HLO and has no counterpart in the torch port")
+        from ..launch.dryrun import analyze_cell as analyze
     from ..configs import SHAPES
     kind = SHAPES[shape].kind
     cands = list(candidates) if candidates is not None \

@@ -1,0 +1,55 @@
+"""The work of the two LM kernels: FLOPs and the bytes they must move.
+
+One place for the formulas that ``chip_smoke.py`` phases 5, 6 and 14 use
+for the kernels' bounds and that the dry run's counting mode
+(``launch/op_analysis.py``) charges for each call of a kernel's custom op.
+FLOPs count 2 a multiply-add over the work the masks keep; bytes count
+each input read once and each output written once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """The (query, key) pairs a mask keeps, queries at positions
+    0..Sq-1."""
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q + 1, Skv) if causal else np.full(Sq, Skv, np.int64)
+    lo = np.maximum(0, q - window + 1) if window is not None \
+        else np.zeros(Sq, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_attention_cost(B: int, H: int, KV: int, Sq: int, Skv: int,
+                         hd: int, causal: bool, window: Optional[int],
+                         itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one flash-attention forward: QK^T and PV over the
+    kept pairs of every (batch row, head); q, k, v read and out written."""
+    flops = 4.0 * hd * attention_pairs(Sq, Skv, causal, window) * B * H
+    nbytes = float(itemsize * (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd))
+    return flops, nbytes
+
+
+def ssd_scan_cost(B: int, T: int, H: int, P: int, N: int, L: int,
+                  itemsize: int, dt_itemsize: int = 4
+                  ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one chunked SSD scan with chunk ``L``.  Causal
+    work: C B^T's lower triangle once per (batch row, chunk), shared by
+    the heads; per head W·x over the triangle, C·state^T and the state
+    update.  Bytes: x, B, C (``itemsize``), dt and A (``dt_itemsize``)
+    read; y and the final state written."""
+    nc = T // L
+    tri = L * (L + 1) / 2
+    flops = 2.0 * (B * nc * tri * N
+                   + B * H * nc * (tri * P + L * N * P + P * N * L))
+    nbytes = float(itemsize * B * T * H * P          # x in
+                   + itemsize * 2 * B * T * N        # B and C in
+                   + dt_itemsize * (B * T * H + H)   # dt and A
+                   + itemsize * B * T * H * P        # y out
+                   + itemsize * B * H * P * N)       # final state out
+    return flops, nbytes

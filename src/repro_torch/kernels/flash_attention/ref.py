@@ -35,6 +35,6 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= (q_pos - k_pos) < window
-    s.masked_fill_(~mask, -1e30)
+    s = s.masked_fill(~mask, -1e30)   # out of place: "dots" remat keeps s
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

@@ -14,6 +14,11 @@ such request it raises.
     python -m repro_torch.launch.serve --arch internlm2-1.8b --reduced \
         --device cpu
 
+Parameters may be DTensors on a ``DeviceMesh`` (laid out by
+``launch/shardings.py``): the prompts are then placed on the mesh by the
+batch rules and the step runs in SPMD mode (``pjit_utils``), each rank on
+its shards.
+
 Greedy decoding takes the first maximal logit, the reference's rule.
 Sampling draws from an explicit ``torch.Generator`` seeded with ``seed``;
 its bits differ from ``jax.random``'s, so sampled tokens are not the
@@ -23,15 +28,18 @@ reference's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import tree
 from ..configs import get_config
 from ..configs.reduced import reduced as make_reduced
 from ..models import transformer as T
+from ..pjit_utils import mesh_of
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,7 +57,26 @@ def _to(tree: Any, device: torch.device) -> Any:
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree if mesh_of(tree) is not None else tree.to(device)
+
+
+@contextlib.contextmanager
+def _spmd(mesh):
+    """SPMD mode, with plain tensors (positions, masks) read as replicated,
+    while a step runs on a mesh; nothing without one."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..pjit_utils import enable_spmd, spmd_enabled
+    was = spmd_enabled()
+    enable_spmd(True)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        enable_spmd(was)
 
 
 def _sync(device: torch.device) -> None:
@@ -73,6 +100,16 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
     B, S = prompts.shape
     cache_len = S + gen_tokens
     tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    mesh = mesh_of(tree.leaves(params)[0])
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..core.sharding_bridge import P
+        from .shardings import batch_axes_for, to_placements
+        dp = batch_axes_for(B, cfg, mesh)
+        tokens = distribute_tensor(tokens, mesh, to_placements(
+            mesh, P(dp if len(dp) != 1 else dp[0], None) if dp
+            else P(None, None)))
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
@@ -81,7 +118,9 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
 
-    with torch.inference_mode():
+    # DTensor views cannot be taken in inference mode: no_grad on a mesh
+    grad_off = torch.inference_mode() if mesh is None else torch.no_grad()
+    with grad_off, _spmd(mesh):
         _sync(device)
         t0 = time.perf_counter()
         logits, cache = T.prefill(cfg, params, tokens, frames=frames,
@@ -96,7 +135,10 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
             out.append(tok[:, 0])
             logits, cache = T.decode_step(cfg, params, cache, tok, S + i)
             tok = pick(logits)
-        generated = torch.stack(out, dim=1).cpu().numpy()   # synchronizes
+        generated = torch.stack(out, dim=1)
+        if mesh is not None:
+            generated = generated.full_tensor()
+        generated = generated.cpu().numpy()                  # synchronizes
         _sync(device)
         decode_s = time.perf_counter() - t0
     return generated, {

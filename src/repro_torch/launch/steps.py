@@ -74,8 +74,7 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
         else:
             grads = loss = None
             for a in range(A):
-                mb = {k: v.reshape((A, v.shape[0] // A) + v.shape[1:])[a]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, A, a) for k, v in batch.items()}
                 l, _m, g = value_and_grad(cfg, params, mb)
                 grads = g if grads is None else T.map(torch.add, grads, g)
                 loss = l if loss is None else loss + l
@@ -104,6 +103,23 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
         return new_state, metrics
 
     return train_step
+
+
+def _microbatch(v: torch.Tensor, A: int, a: int) -> torch.Tensor:
+    """Microbatch ``a`` of ``A``: the reference's contiguous block of rows.
+    A ``DTensor`` batch sharded over n ranks is split rank by rank
+    instead (block ``a`` of each rank's rows), so that no rank's rows
+    move; the microbatches' mean loss and summed gradient are the same."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(v, DTensor):
+        return v.reshape((A, v.shape[0] // A) + v.shape[1:])[a]
+    n = 1
+    for size, pl in zip(v.device_mesh.shape, v.placements):
+        if pl == Shard(0):
+            n *= size
+    rest = tuple(v.shape[1:])
+    return v.reshape((n, A, v.shape[0] // (n * A)) + rest)[:, a].reshape(
+        (v.shape[0] // A,) + rest)
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

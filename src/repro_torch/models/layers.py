@@ -9,8 +9,12 @@ differ from ``jax.random``'s, so the CPU tests carry JAX-initialised weights
 across (:mod:`.convert`).
 
 Full-sequence attention (prefill) goes through the flash-attention kernel
-(:func:`full_attention`); decode attention is :func:`sdpa` over the cache,
-as the reference's decode is plain jnp.
+(:func:`full_attention`); decode attention is :func:`auto_sdpa` over the
+cache, as the reference's decode is plain jnp: :func:`sdpa`, or with
+:data:`FLASH_DECODE_ENABLED` and a cache of at least
+:data:`FLASH_DECODE_THRESHOLD` slots :func:`flash_decode`, the reference's
+online softmax over key blocks (plain torch, as the reference's is jnp
+outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as flash_ops
+from ..pjit_utils import mesh_of, shard_index, use_param
 
 Params = Dict[str, Any]
 
@@ -80,15 +85,43 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Interleaved (adjacent-pair) RoPE.  x: (..., S, H, hd); pair
-    (2i, 2i+1) rotates by freq_i, as in the reference."""
+    (2i, 2i+1) rotates by freq_i, as in the reference.  A DTensor is
+    rotated shard by shard (its pairs never straddle two shards of hd)."""
+    if mesh_of(x) is not None:
+        return _rope_local(x, positions, theta)
+    return _rope(x, positions, rope_freqs(x.shape[-1], theta, x.device))
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          freqs: torch.Tensor) -> torch.Tensor:
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
     ang = positions[..., :, None].float() * freqs              # (..., S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     xr = x.float().reshape(x.shape[:-1] + (hd // 2, 2))
     x1, x2 = xr[..., 0], xr[..., 1]
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def _rope_local(x, positions, theta):
+    """RoPE on each rank's shard of a DTensor x (..., S, H, hd): the
+    frequencies of the shard's own block of hd (the sequence dim must not
+    be split); the layout stays as it is."""
+    from torch.distributed.tensor import DTensor
+    mesh, nd = x.device_mesh, x.dim()
+    if any(pl.is_shard() and pl.dim % nd == nd - 3 for pl in x.placements):
+        raise ValueError("RoPE over a split sequence")
+    local = x.to_local()
+    axes = [i for i, pl in enumerate(x.placements)
+            if pl.is_shard() and pl.dim % nd == nd - 1]
+    off = shard_index(mesh, axes)
+    half = local.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, local.device)[
+        off * half:off * half + half]
+    if mesh_of(positions) is not None:
+        positions = positions.full_tensor()
+    return DTensor.from_local(_rope(local, positions, freqs), mesh,
+                              x.placements, run_check=False)
 
 
 def sinusoidal_embed(length: int, d: int, device=None) -> torch.Tensor:
@@ -101,6 +134,32 @@ def sinusoidal_embed(length: int, d: int, device=None) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+def pad_zeros(x: torch.Tensor, pad) -> torch.Tensor:
+    """``F.pad(x, pad)`` with zeros.  A DTensor is padded by concatenating
+    zero slices of itself along each padded dim, so its layout carries
+    through (some torch versions' DTensor fails to redistribute for
+    ``pad``); the values are the same."""
+    if mesh_of(x) is None:
+        return F.pad(x, pad)
+    for k in range(len(pad) // 2):
+        dim = x.dim() - 1 - k
+        parts = [_zeros_along(x, dim, pad[2 * k]), x,
+                 _zeros_along(x, dim, pad[2 * k + 1])]
+        parts = [t for t in parts if t is not None]
+        if len(parts) > 1:
+            x = torch.cat(parts, dim=dim)
+    return x
+
+
+def _zeros_along(x: torch.Tensor, dim: int, n: int):
+    if not n:
+        return None
+    z = torch.zeros_like(x.narrow(dim, 0, min(n, x.shape[dim])))
+    while z.shape[dim] < n:
+        z = torch.cat([z, z], dim=dim)
+    return z.narrow(dim, 0, n)
 
 
 # ---------------------------------------------------------------------------
@@ -118,9 +177,9 @@ def dense_init(gen: torch.Generator, din: int, dout: int, dtype,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = x @ use_param(p["w"])
     if "b" in p:
-        y = y + p["b"]
+        y = y + use_param(p["b"])
     return y
 
 
@@ -197,6 +256,203 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, vd).to(q.dtype)
 
 
+FLASH_DECODE_THRESHOLD = 8192
+FLASH_DECODE_BLOCK = 2048
+#: default OFF, as in the reference; the advisor's ``flash_decode`` variant
+#: and ``chip_smoke.py`` phase 15 switch it on
+FLASH_DECODE_ENABLED = False
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 kv_len: Optional[int] = None,
+                 window: Optional[int] = None,
+                 attn_softcap: float = 0.0, q_offset: int = 0,
+                 scale: Optional[float] = None,
+                 block: int = FLASH_DECODE_BLOCK,
+                 causal: bool = True) -> torch.Tensor:
+    """Single-token decode attention with online softmax over KEY blocks.
+
+    The cache is walked in ``block``-sized slices carrying the running
+    (m, l, acc) in float32, so scores never exist at full length.
+    q: (B, 1, H, hd); k: (B, Skv, KV, hd); v: (B, Skv, KV, vd).  Masking
+    is the reference's: keys at or past ``kv_len`` (default Skv) and, with
+    a ``window``, keys with ``q_offset - k_pos >= window`` score -1e30.
+    ``causal`` is accepted and ignored, as in the reference (a decode
+    query sees every valid key).  Where the reference pads a cache whose
+    length is not a multiple of ``block`` with zero keys (masked), the
+    port takes a shorter last block; blocks that start at or past
+    ``kv_len`` hold only masked keys, which add exactly nothing to
+    (l, acc) once a valid key has set m, so they are not read."""
+    B, Sq, H, hd = q.shape
+    assert Sq == 1
+    Skv, KV = k.shape[1], k.shape[2]
+    vd = v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    valid = Skv if kv_len is None else int(kv_len)
+
+    qf = (q * scale).float().reshape(B, KV, G, hd)
+    m = torch.full((B, KV, G), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, vd), dtype=torch.float32, device=q.device)
+    for i0 in range(0, min(valid, Skv), block):
+        kb = k.narrow(1, i0, min(block, Skv - i0))
+        vb = v.narrow(1, i0, kb.shape[1])
+        s = torch.einsum("bkgd,bmkd->bkgm", qf, kb.float())  # (B,KV,G,blk)
+        if attn_softcap > 0:
+            s = softcap(s, attn_softcap)
+        k_pos = i0 + torch.arange(kb.shape[1], device=q.device)
+        mask = k_pos < valid
+        if window is not None:
+            mask &= (q_offset - k_pos) < window
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgm,bmkd->bkgd", p.to(v.dtype).float(),
+                          vb.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, vd).to(q.dtype)
+
+
+def auto_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              **kw) -> torch.Tensor:
+    """The reference's router at the decode call sites: :func:`flash_decode`
+    for one query over a cache of at least the threshold when enabled,
+    else :func:`sdpa`.  (The reference's third route, ``blockwise_sdpa``
+    for long full sequences, is the flash kernel here.)  On DTensors each
+    rank attends its own batch rows and heads (:func:`_attend_local`)."""
+    if mesh_of(q) is not None:
+        return _attend_local(q, k, v, kw)
+    return _route(q, k, v, kw)
+
+
+def _route(q, k, v, kw) -> torch.Tensor:
+    if (FLASH_DECODE_ENABLED and q.shape[1] == 1
+            and k.shape[1] >= FLASH_DECODE_THRESHOLD):
+        return flash_decode(q, k, v, **kw)
+    return sdpa(q, k, v, **kw)
+
+
+def _attend_local(q, k, v, kw) -> torch.Tensor:
+    """:func:`auto_sdpa` on DTensors q (B, Sq, H, hd), k and v (B, Skv, KV,
+    ·).  Each (batch row, head) attends on its own, so each rank runs the
+    plain route on its shards — batch rows as q has them, heads over a
+    mesh axis that divides KV — the layout XLA gives the reference's
+    einsums, where DTensor, placing the einsums' reshapes one by one, can
+    move whole score tensors.  Over the mesh axes that split the cache's
+    sequence (batch-1 long context, the ``cache_seq_shard`` variant) each
+    rank attends its block of keys and the softmax is combined across the
+    blocks (:func:`_attend_seq_split`), flash-decode style."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, KV = q.device_mesh, k.shape[2]
+    seq = [i for i, pl in enumerate(k.placements) if pl == Shard(1)]
+    layout = [Replicate() if i in seq else Shard(0) if pl == Shard(0) else
+              Shard(2) if pl == Shard(2) and KV % size == 0 else Replicate()
+              for i, (pl, size) in enumerate(zip(q.placements, mesh.shape))]
+    kv_layout = [Shard(1) if i in seq else pl for i, pl in enumerate(layout)]
+    ql = q.redistribute(mesh, layout).to_local()
+    kl, vl = (t.redistribute(mesh, kv_layout).to_local() for t in (k, v))
+    out = (_attend_seq_split(ql, kl, vl, kw, mesh, seq) if seq
+           else _route(ql, kl, vl, kw))
+    return DTensor.from_local(out, mesh, layout, run_check=False)
+
+
+def _attend_seq_split(q, k, v, kw, mesh, axes) -> torch.Tensor:
+    """Attention of local queries q (B, Sq, H, hd) over this rank's block of
+    keys (B, L_loc, KV, ·), combined with the other blocks' over the mesh
+    ``axes``: each block's running max m, sum l and P·V acc (float32, the
+    masking of :func:`sdpa` at the keys' global positions), then the max
+    and the rescaled sums all-reduced.  A block with no valid key adds
+    exactly nothing once the max is global."""
+    from torch.distributed import _functional_collectives as funcol
+    causal, window = kw.get("causal", True), kw.get("window")
+    cap, q_offset = kw.get("attn_softcap", 0.0), kw.get("q_offset", 0)
+    kv_len, scale = kw.get("kv_len"), kw.get("scale")
+    B, Sq, H, hd = q.shape
+    Lb, KV, vd = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    off = shard_index(mesh, axes) * Lb
+    qf = (q * scale).float().reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bqkgd,bmkd->bkgqm", qf, k.float())
+    if cap > 0:
+        s = softcap(s, cap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = off + torch.arange(Lb, device=q.device)[None, :]
+    mask = torch.ones((Sq, Lb), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    if kv_len is not None:
+        mask &= k_pos < kv_len
+    s = s.masked_fill(~mask, -1e30)
+    m = s.amax(dim=-1)                                     # (B,KV,G,Sq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqm,bmkd->bkgqd", p.to(v.dtype).float(), v.float())
+
+    def reduce(t, op):
+        for i in axes:
+            t = funcol.all_reduce(t, op, mesh.get_group(i))
+            t = t.wait() if hasattr(t, "wait") else t
+        return t
+    m_all = reduce(m, "max")
+    w = torch.exp(m - m_all)
+    l = reduce(l * w, "sum")
+    acc = reduce(acc * w[..., None], "sum")
+    out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,KV,G,Sq,vd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vd).to(q.dtype)
+
+
+def cache_write(buf: torch.Tensor, start: int, val: torch.Tensor) -> None:
+    """``buf[:, start:start + S] = val`` in place (S = val's length).  A
+    DTensor cache is written shard by shard: each rank writes the
+    positions its block holds, with no collective (DTensor's own slice of
+    a cache split along its sequence would gather the whole cache)."""
+    val = val.to(buf.dtype)
+    if mesh_of(buf) is None:
+        buf[:, start:start + val.shape[1]] = val
+        return
+    local, vl, off = _cache_blocks(buf, val)
+    lo, hi = max(start, off), min(start + vl.shape[1], off + local.shape[1])
+    if lo < hi:
+        local[:, lo - off:hi - off] = vl[:, lo - start:hi - start]
+
+
+def cache_scatter(buf: torch.Tensor, slots: torch.Tensor,
+                  val: torch.Tensor) -> None:
+    """``buf.index_copy_(1, slots, val)`` where ``slots`` is a permutation
+    of buf's positions (every slot written once: a ring cache's prefill).
+    A DTensor cache is written shard by shard, each rank filling its own
+    block of positions from the rows that land there."""
+    val = val.to(buf.dtype)
+    if mesh_of(buf) is None:
+        buf.index_copy_(1, slots, val)
+        return
+    local, vl, off = _cache_blocks(buf, val)
+    src = torch.empty_like(slots)
+    src[slots] = torch.arange(slots.numel(), device=slots.device)
+    local.copy_(vl[:, src[off:off + local.shape[1]]])
+
+
+def _cache_blocks(buf, val):
+    """(buf's local shard, val's laid out as buf's but whole along the
+    sequence, the position where this rank's block of buf starts)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    axes = [i for i, pl in enumerate(buf.placements) if pl == Shard(1)]
+    layout = [Replicate() if i in axes else pl
+              for i, pl in enumerate(buf.placements)]
+    local = buf.to_local()
+    vl = val.redistribute(mesh, layout).to_local()
+    return local, vl, shard_index(mesh, axes) * local.shape[1]
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window: Optional[int] = None,
                    attn_softcap: float = 0.0,
@@ -244,7 +500,7 @@ def attention_block(p: Params, x: torch.Tensor, *, num_heads: int,
     Decode: pass ``kv_cache`` ({"k","v"}: (B, L, KV, hd)) and ``cache_pos``;
     the new k/v are written at ``cache_pos`` IN PLACE (the reference returns
     updated copies; writing in place saves a cache-sized copy per layer and
-    step) and attention runs over the prefix.
+    step) and attention runs over the prefix (:func:`auto_sdpa`).
     """
     q, k, v = project_qkv(p, x, num_heads=num_heads,
                           num_kv_heads=num_kv_heads, head_dim=head_dim,
@@ -253,12 +509,13 @@ def attention_block(p: Params, x: torch.Tensor, *, num_heads: int,
     new_cache = None
     if kv_cache is not None:
         S = q.shape[1]
-        kv_cache["k"][:, cache_pos:cache_pos + S] = k.to(kv_cache["k"].dtype)
-        kv_cache["v"][:, cache_pos:cache_pos + S] = v.to(kv_cache["v"].dtype)
+        cache_write(kv_cache["k"], cache_pos, k)
+        cache_write(kv_cache["v"], cache_pos, v)
         new_cache = kv_cache
-        out = sdpa(q, kv_cache["k"], kv_cache["v"], causal=causal,
-                   window=window, attn_softcap=attn_softcap,
-                   q_offset=cache_pos, kv_len=cache_pos + S, scale=scale)
+        out = auto_sdpa(q, kv_cache["k"], kv_cache["v"], causal=causal,
+                        window=window, attn_softcap=attn_softcap,
+                        q_offset=cache_pos, kv_len=cache_pos + S,
+                        scale=scale)
     else:
         out = full_attention(q, k, v, causal=causal, window=window,
                              attn_softcap=attn_softcap, scale=scale)
@@ -310,12 +567,50 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    table = use_param(p["table"])
+    if mesh_of(tokens) is not None:
+        rows = _lookup_local(table, tokens)
+        if rows is not None:
+            return rows
+    return table[tokens]
+
+
+def _lookup_local(table, tokens):
+    """A table's rows for DTensor ``tokens``, looked up on each rank's
+    shards (vocab-parallel where the table's rows are split: rows outside
+    the rank's block are zero and the output is partial over the axes
+    that split them); the output is sharded as the tokens are, and the
+    table's gradient partial over the axes that split the tokens.  Torch
+    versions differ in which of these layouts DTensor's own lookup takes
+    (some gather a vocab-split table, some refuse tokens split over two
+    axes); None where the layouts do not fit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    out, grads, vocab = [], [], []
+    for i, (tp, kp) in enumerate(zip(table.placements, tokens.placements)):
+        if tp == Shard(0) and kp.is_replicate():
+            vocab.append(i)
+            out.append(Partial())
+            grads.append(tp)
+        elif tp.is_replicate():
+            out.append(kp)
+            grads.append(Partial() if kp.is_shard() else Replicate())
+        else:
+            return None
+    local = table.to_local(grad_placements=grads)
+    tok = tokens.to_local().long()
+    if vocab:
+        tok = tok - shard_index(table.device_mesh, vocab) * local.shape[0]
+        inside = (tok >= 0) & (tok < local.shape[0])
+        rows = local[tok.clamp(0, local.shape[0] - 1)] * \
+            inside[..., None].to(local.dtype)
+    else:
+        rows = local[tok]
+    return DTensor.from_local(rows, tokens.device_mesh, out, run_check=False)
 
 
 def unembed(p: Params, x: torch.Tensor, real_vocab: int,
             cap: float = 0.0) -> torch.Tensor:
-    logits = x @ p["table"].T
+    logits = x @ use_param(p["table"]).T
     if cap > 0:
         logits = softcap(logits, cap)
     V = p["table"].shape[0]
@@ -326,8 +621,22 @@ def unembed(p: Params, x: torch.Tensor, real_vocab: int,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL in fp32; logits (B,S,V), labels (B,S)."""
+    """Mean token NLL in fp32; logits (B,S,V), labels (B,S).
+
+    On a ``DTensor`` (the vocabulary sharded over "model") it is computed
+    vocab-parallel: the max, the sum of exponentials and the gold logit
+    (a masked sum) are reductions whose partial results DTensor sums
+    across the shards, where ``logsumexp`` and ``gather`` would gather the
+    whole (B, S, V) logits, and ``gather``'s backward would allocate them
+    unsharded."""
     logits = logits.float()
+    if mesh_of(logits) is not None:
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == labels[..., None].long(), logits,
+                           0.0).sum(dim=-1)
+        return torch.mean(logz - gold)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)

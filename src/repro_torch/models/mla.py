@@ -32,8 +32,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention.flash_attention import HEAD_DIMS
-from .layers import (Params, apply_rope, dense, dense_init, full_attention,
-                     rmsnorm, rmsnorm_init, sdpa)
+from ..pjit_utils import constrain_batch_only, use_param
+from .layers import (Params, apply_rope, auto_sdpa, cache_write, dense,
+                     dense_init, full_attention, pad_zeros, rmsnorm,
+                     rmsnorm_init)
 
 
 def mla_init(gen: torch.Generator, d_model: int, num_heads: int, *,
@@ -92,19 +94,18 @@ def padded_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
     """Causal MLA attention over one sequence through the flash-attention
     kernel (its plain version on CPU tensors).  q_nope, k_nope: (B, S, H,
     nd); q_rope: (B, S, H, rd); k_rope: (B, S, rd), shared by the heads;
-    v: (B, S, H, vd) → (B, S, H, vd).  q, k and v are written into
-    zero-filled (B, S, H, hd) buffers, hd from :func:`padded_head_dim`."""
+    v: (B, S, H, vd) → (B, S, H, vd).  q, k and v are zero-padded to
+    (B, S, H, hd), hd from :func:`padded_head_dim` (concatenated and padded,
+    not written into a zero buffer, so that a ``DTensor``'s batch and head
+    sharding carries through)."""
     B, S, H, nd = q_nope.shape
     rd, vd = q_rope.shape[-1], v.shape[-1]
     hd = padded_head_dim(nd + rd, vd)
-    q = q_nope.new_zeros((B, S, H, hd))
-    q[..., :nd] = q_nope
-    q[..., nd:nd + rd] = q_rope
-    k = q_nope.new_zeros((B, S, H, hd))
-    k[..., :nd] = k_nope
-    k[..., nd:nd + rd] = k_rope[:, :, None, :]
-    vp = q_nope.new_zeros((B, S, H, hd))
-    vp[..., :vd] = v
+    pad = (0, hd - nd - rd)
+    q = pad_zeros(torch.cat([q_nope, q_rope], dim=-1), pad)
+    k = pad_zeros(torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1), pad)
+    vp = pad_zeros(v, (0, hd - vd))
     return full_attention(q, k, vp, causal=True, scale=scale)[..., :vd]
 
 
@@ -126,21 +127,22 @@ def mla_attention(p: Params, x: torch.Tensor, *, num_heads: int,
     q_nope, q_rope = _project_q(p, x, H, nd, rd, positions, rope_theta)
     c_kv, k_rope = _project_kv_latent(p, x, R, rd, positions, rope_theta)
     if cache is not None:
-        cache["ckv"][:, cache_pos:cache_pos + S] = c_kv.to(cache["ckv"].dtype)
-        cache["krope"][:, cache_pos:cache_pos + S] = \
-            k_rope.to(cache["krope"].dtype)
+        cache_write(cache["ckv"], cache_pos, c_kv)
+        cache_write(cache["krope"], cache_pos, k_rope)
 
     if cache is None or not cache_pos:
         k_nope, v = _expand_kv(p, c_kv, H, nd, vd)
         out = padded_attention(q_nope, q_rope, k_nope, k_rope, v, scale)
     else:
         kv_len = cache_pos + S
-        k_nope, v = _expand_kv(p, cache["ckv"][:, :kv_len], H, nd, vd)
+        k_nope, v = _expand_kv(
+            p, constrain_batch_only(cache["ckv"][:, :kv_len]), H, nd, vd)
         krope = cache["krope"][:, :kv_len, None, :]
         k_full = torch.cat([k_nope, krope.expand(k_nope.shape[:-1] + (rd,))],
                            -1)
-        out = sdpa(torch.cat([q_nope, q_rope], -1), k_full, v, causal=True,
-                   q_offset=cache_pos, kv_len=kv_len, scale=scale)
+        out = auto_sdpa(torch.cat([q_nope, q_rope], -1), k_full, v,
+                        causal=True, q_offset=cache_pos, kv_len=kv_len,
+                        scale=scale)
     y = dense(p["wo"], out.reshape(B, S, H * vd).to(x.dtype))
     return y, cache
 
@@ -169,14 +171,13 @@ def mla_attention_absorbed(p: Params, x: torch.Tensor, *, num_heads: int,
 
     q_nope, q_rope = _project_q(p, x, H, nd, rd, positions, rope_theta)
     c_kv, k_rope = _project_kv_latent(p, x, R, rd, positions, rope_theta)
-    cache["ckv"][:, cache_pos:cache_pos + S] = c_kv.to(cache["ckv"].dtype)
-    cache["krope"][:, cache_pos:cache_pos + S] = \
-        k_rope.to(cache["krope"].dtype)
+    cache_write(cache["ckv"], cache_pos, c_kv)
+    cache_write(cache["krope"], cache_pos, k_rope)
     kv_len = cache_pos + S
     ckv = cache["ckv"][:, :kv_len].float()
     krope = cache["krope"][:, :kv_len].float()
 
-    wkv_b = p["wkv_b"]["w"].reshape(R, H, nd + vd).float()
+    wkv_b = use_param(p["wkv_b"]["w"]).reshape(R, H, nd + vd).float()
     w_uk, w_uv = wkv_b[..., :nd], wkv_b[..., nd:]              # (R,H,nd|vd)
 
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)

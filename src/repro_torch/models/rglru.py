@@ -28,7 +28,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense, dense_init
+from ..pjit_utils import mesh_of
+from .layers import Params, dense, dense_init, pad_zeros
 
 RGLRU_C = 8.0
 
@@ -72,7 +73,20 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     composition of steps (t-2d, t].  No cumulative product of ``a`` is
     formed (it would underflow over a long prompt and need a division).
     The combine is associative, but its order differs from XLA's tree for
-    ``associative_scan``: results agree to rounding, not bit for bit."""
+    ``associative_scan``: results agree to rounding, not bit for bit.
+    DTensors are scanned shard by shard (each (batch row, channel) is its
+    own recurrence) unless their time axis is split."""
+    mesh = mesh_of(b)
+    if mesh is not None and not any(
+            pl.is_shard() and pl.dim % b.dim() == 1 for pl in b.placements):
+        from torch.distributed.tensor import DTensor
+        a = a.redistribute(mesh, b.placements)
+        return DTensor.from_local(_scan(a.to_local(), b.to_local()), mesh,
+                                  b.placements, run_check=False)
+    return _scan(a, b)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     T = a.shape[1]
     for k in range(math.ceil(math.log2(T)) if T > 1 else 0):
         d = 1 << k
@@ -86,8 +100,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_scan(p: Params, x: torch.Tensor,
                h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,T,W) → (y: (B,T,W), h_final: (B,W)), both in x's dtype."""
+    """x: (B,T,W) → (y: (B,T,W), h_final: (B,W)), both in x's dtype.  On
+    DTensors the coefficients are laid out as x (DTensor may have split
+    their time axis for the gates' products), so the scan runs shard by
+    shard."""
     a, b = _rglru_coeffs(p, x)
+    if mesh_of(x) is not None:
+        a, b = (t.redistribute(x.device_mesh, x.placements) for t in (a, b))
     if h0 is not None:
         # fold h0 in as a virtual step 0: b_0 = h0, a_0 = 1
         a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
@@ -111,13 +130,35 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    hist: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv, x: (B,T,C), w: (W,C) → (out, the last W-1
-    inputs, zero-padded on the left, for the next call's ``hist``)."""
+    inputs, zero-padded on the left, for the next call's ``hist``).  A
+    DTensor x whose time axis is whole is convolved shard by shard (each
+    (batch row, channel) on its own), so its channel sharding reaches the
+    scan."""
+    mesh = mesh_of(x)
+    if mesh is not None and hist is None and not any(
+            pl.is_shard() and pl.dim % 3 == 1 for pl in x.placements):
+        return _conv_local(mesh, x, w, b)
     W = w.shape[0]
-    pads = (F.pad(x, (0, 0, W - 1, 0)) if hist is None
+    pads = (pad_zeros(x, (0, 0, W - 1, 0)) if hist is None
             else torch.cat([hist, x], dim=1))
     out = sum(pads[:, i:i + x.shape[1]] * w[i] for i in range(W))
     # a copy: a view would keep the whole padded input alive in the cache
     return out + b, pads[:, -(W - 1):].clone()
+
+
+def _conv_local(mesh, x, w, b):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    chan = [pl.is_shard() and pl.dim % 3 == 2 for pl in x.placements]
+    rows = [pl.is_shard() and pl.dim % 3 == 0 for pl in x.placements]
+
+    def local(t, dim):
+        # sharded as x's channels; the gradient partial over x's batch
+        pl = [Shard(dim) if c else Replicate() for c in chan]
+        grads = [Partial() if r else p for r, p in zip(rows, pl)]
+        return t.redistribute(mesh, pl).to_local(grad_placements=grads)
+    out, tail = _causal_conv1d(x.to_local(), local(w, 1), local(b, 0))
+    return (DTensor.from_local(out, mesh, x.placements, run_check=False),
+            DTensor.from_local(tail, mesh, x.placements, run_check=False))
 
 
 def rglru_block(p: Params, x: torch.Tensor, *,

@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import ssd_ref as ssd_scan_ref  # noqa: F401
-from .layers import Params, dense, dense_init, rmsnorm, rmsnorm_init, silu
+from .layers import (Params, dense, dense_init, pad_zeros, rmsnorm,
+                     rmsnorm_init, silu)
 
 
 def ssd_init(gen: torch.Generator, d_model: int, *, d_inner: int, state: int,
@@ -45,7 +46,7 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """x: (B,T,C); w: (W,C) depthwise causal conv."""
     W, T = w.shape[0], x.shape[1]
-    pads = F.pad(x, (0, 0, W - 1, 0))
+    pads = pad_zeros(x, (0, 0, W - 1, 0))
     out = sum(pads[:, i:i + T] * w[i] for i in range(W))
     return silu(out + b)
 
@@ -91,10 +92,10 @@ def ssd_block(p: Params, x: torch.Tensor, *, d_inner: int, state: int,
         xs, dts, Bs, Cs = xh, dt, Bm, Cm
         if T_pad != T:
             pad = T_pad - T
-            xs = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dts = F.pad(dt, (0, 0, 0, pad))
-            Bs = F.pad(Bm, (0, 0, 0, pad))
-            Cs = F.pad(Cm, (0, 0, 0, pad))
+            xs = pad_zeros(xh, (0, 0, 0, 0, 0, pad))
+            dts = pad_zeros(dt, (0, 0, 0, pad))
+            Bs = pad_zeros(Bm, (0, 0, 0, pad))
+            Cs = pad_zeros(Cm, (0, 0, 0, pad))
         y, final = ssd_ops.ssd(xs, dts, A, Bs, Cs, chunk=chunk)
         y = y[:, :T]
         if return_final_state:
@@ -118,11 +119,15 @@ def ssd_block(p: Params, x: torch.Tensor, *, d_inner: int, state: int,
     return dense(p["out_proj"], y), new_state
 
 
+def ssd_state_shape(B: int, d_inner: int, state: int, nheads: int,
+                    conv_width: int) -> Dict[str, Tuple[int, ...]]:
+    return {"h": (B, nheads, d_inner // nheads, state),
+            "conv": (B, conv_width - 1, d_inner + 2 * state)}
+
+
 def ssd_state_init(B: int, d_inner: int, state: int, nheads: int,
                    conv_width: int, dtype, device=None
                    ) -> Dict[str, torch.Tensor]:
-    P = d_inner // nheads
-    return {"h": torch.zeros((B, nheads, P, state), dtype=dtype,
-                             device=device),
-            "conv": torch.zeros((B, conv_width - 1, d_inner + 2 * state),
-                                dtype=dtype, device=device)}
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in ssd_state_shape(B, d_inner, state, nheads,
+                                            conv_width).items()}

@@ -12,6 +12,9 @@ Three modes share the layer dispatcher:
   (non-reentrant) and is recomputed in the backward pass, where the
   reference wraps each scanned group of the pattern in ``jax.checkpoint``
   (the same values; only what is kept between the passes differs);
+  ``cfg.remat_policy == "dots"`` keeps the matmul outputs (``mm``,
+  ``bmm``, ``addmm``) and recomputes the rest, the reference's
+  ``checkpoint_dots`` policy, through selective checkpointing;
 * ``prefill`` — full-sequence forward that also emits the decode cache;
 * ``decode``  — single-token step updating the cache (in place).
 
@@ -36,13 +39,16 @@ and whisper's frame embeddings, arrive fused).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..pjit_utils import constrain_batch_only, spmd_cache
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -166,9 +172,16 @@ def _ring(cfg: ArchConfig, spec: LayerSpec) -> bool:
             and cfg.windowed_local_cache)
 
 
-def _layer_cache(cfg: ArchConfig, spec: LayerSpec, B: int, Lc: int, dtype,
-                 device) -> Dict[str, Any]:
-    zeros = partial(torch.zeros, dtype=dtype, device=device)
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype with no storage (``jax.ShapeDtypeStruct``):
+    ``init_cache(..., zeros=ShapeDtype)`` gives the cache's structure."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, B: int, Lc: int,
+                 zeros) -> Dict[str, Any]:
     if spec.mixer == "attn":
         length = min(Lc, cfg.sliding_window) if _ring(cfg, spec) else Lc
         kv = (B, length, cfg.num_kv_heads, cfg.head_dim)
@@ -179,8 +192,8 @@ def _layer_cache(cfg: ArchConfig, spec: LayerSpec, B: int, Lc: int, dtype,
         c = {k: zeros(shape) for k, shape in shapes.items()}
     elif spec.mixer == "ssd":
         s = cfg.ssd
-        c = SSD.ssd_state_init(B, s.d_inner, s.state, s.nheads, s.conv_width,
-                               dtype, device)
+        c = {k: zeros(shape) for k, shape in SSD.ssd_state_shape(
+            B, s.d_inner, s.state, s.nheads, s.conv_width).items()}
     else:
         r = cfg.rglru
         c = {k: zeros(shape) for k, shape in RG.rglru_state_shape(
@@ -191,17 +204,24 @@ def _layer_cache(cfg: ArchConfig, spec: LayerSpec, B: int, Lc: int, dtype,
     return c
 
 
-def init_cache(cfg: ArchConfig, B: int, Lc: int,
-               device=None) -> List[Dict[str, Any]]:
+def init_cache(cfg: ArchConfig, B: int, Lc: int, device=None,
+               zeros=None) -> List[Dict[str, Any]]:
     """One cache per layer, in execution order: attention → K/V
     (B, Lc, KV, hd), or (B, min(Lc, window), KV, hd) for a ring-buffered
     local layer; MLA → the latent {"ckv": (B, Lc, R), "krope":
     (B, Lc, rd)}; SSD and RG-LRU → recurrent state {"h", "conv"}; with an
-    encoder, each layer's cross K/V {"cross": {"k", "v"}: (B, F, KV, hd)}."""
+    encoder, each layer's cross K/V {"cross": {"k", "v"}: (B, F, KV, hd)}.
+    Each leaf is ``zeros(shape, dtype)``, by default zeros on ``device``."""
     check_supported(cfg)
     dt = dtype_of(cfg)
-    return [_layer_cache(cfg, spec, B, Lc, dt, device)
+    if zeros is None:
+        zeros = partial(_zeros, device=device)
+    return [_layer_cache(cfg, spec, B, Lc, lambda shape: zeros(shape, dt))
             for spec in cfg.all_specs]
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 # ===========================================================================
@@ -267,9 +287,9 @@ def _attn_prefill(cfg, spec, p, x, positions, cache, window):
     for name, t in (("k", k), ("v", v)):
         if _ring(cfg, spec) and S >= W:
             slots = torch.arange(S - W, S, device=x.device) % W
-            cache[name].index_copy_(1, slots, t[:, S - W:].to(cache[name].dtype))
+            L.cache_scatter(cache[name], slots, t[:, S - W:])
         else:
-            cache[name][:, :S] = t.to(cache[name].dtype)
+            L.cache_write(cache[name], 0, t)
     return y, cache
 
 
@@ -278,7 +298,11 @@ def _attn_decode_ring(cfg, p, x, positions, cache, cache_pos):
     new k/v go to slot ``cache_pos % W`` (in place), and attention runs
     non-causally, with no window, over the first ``min(cache_pos + 1, W)``
     slots (RoPE was applied before caching, so slot order does not
-    matter).  RoPE follows ``cfg.positional`` alone, as in the reference."""
+    matter).  RoPE follows ``cfg.positional`` alone, as in the reference.
+    Attention goes through :func:`L.auto_sdpa`, where the reference calls
+    ``sdpa``: the two differ only for a ring of at least
+    ``FLASH_DECODE_THRESHOLD`` slots with flash decode on, which no config
+    has (recurrentgemma-9b, the one config with rings, keeps 2048)."""
     pa = p["attn"]
     q, k, v = L.project_qkv(
         pa, x, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -286,11 +310,11 @@ def _attn_decode_ring(cfg, p, x, positions, cache, cache_pos):
         use_rope=cfg.positional == "rope", rope_theta=cfg.rope_theta)
     W = cache["k"].shape[1]
     slot = cache_pos % W
-    cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
-    cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
-    out = L.sdpa(q, cache["k"], cache["v"], causal=False,
-                 attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-                 kv_len=min(cache_pos + 1, W))
+    L.cache_write(cache["k"], slot, k)
+    L.cache_write(cache["v"], slot, v)
+    out = L.auto_sdpa(q, cache["k"], cache["v"], causal=False,
+                      attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                      kv_len=min(cache_pos + 1, W))
     y = L.dense(pa["wo"],
                 out.reshape(out.shape[:2] + (cfg.num_heads * cfg.head_dim,)))
     return y, cache
@@ -325,7 +349,7 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
                                 mode=mode, cache=cache, cache_pos=cache_pos)
     if cfg.use_post_norm:
         y = L.norm_apply(cfg.norm, p["ln_attn_post"], y)
-    x = x + y
+    x = constrain_batch_only(x + y)
     if "cross" in p:
         h = L.norm_apply(cfg.norm, p["ln_cross"], x)
         y, cross = _cross_attention(
@@ -334,13 +358,13 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
         if mode == "prefill":
             for w in ("k", "v"):
                 cache["cross"][w].copy_(cross[w])
-        x = x + y
+        x = constrain_batch_only(x + y)
     if spec.ffn == "dense":
         h = L.norm_apply(cfg.norm, p["ln_ffn"], x)
         y = L.ffn(p["ffn"], h, cfg.ffn_activation)
         if cfg.use_post_norm:
             y = L.norm_apply(cfg.norm, p["ln_ffn_post"], y)
-        x = x + y
+        x = constrain_batch_only(x + y)
     aux = None
     if spec.ffn == "moe":
         m = cfg.moe
@@ -348,13 +372,38 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
         y, aux = MOE.moe_ffn(p["ffn"], h, num_experts=m.num_experts,
                              top_k=m.top_k, capacity_factor=m.capacity_factor,
                              activation=cfg.ffn_activation)
-        x = x + y
+        x = constrain_batch_only(x + y)
     return x, new_cache, aux
 
 
 # ===========================================================================
 # Full forward passes
 # ===========================================================================
+
+#: the ops whose outputs ``remat_policy="dots"`` keeps for the backward
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant; the
+    layers draw no random numbers, so no RNG state is replayed), keeping
+    the matmul outputs when ``cfg.remat_policy == "dots"``."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"{cfg.name}: unknown remat_policy "
+                         f"'{cfg.remat_policy}'")
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
 
 def _encoder_layer(cfg: ArchConfig, p: Params, h, positions):
     hn = L.norm_apply(cfg.norm, p["ln_attn"], h)
@@ -379,8 +428,7 @@ def _encoder_forward(cfg: ArchConfig, params: Params, frames: torch.Tensor,
     positions = torch.arange(F, device=x.device)
     for p in params["encoder"]["layers"]:
         if remat:
-            x = checkpoint(_encoder_layer, cfg, p, x, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = _remat(cfg, _encoder_layer, cfg, p, x, positions)
         else:
             x = _encoder_layer(cfg, p, x, positions)
     return L.norm_apply(cfg.norm, params["encoder"]["norm"], x)
@@ -415,6 +463,7 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = _embed_tokens(cfg, params, tokens)
     if cfg.positional == "learned":
         x = x + params["pos_embed"][start:start + S].to(x.dtype)
+    x = constrain_batch_only(x)
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     enc_out = None
     if cfg.encoder is not None and mode != "decode":
@@ -428,10 +477,8 @@ def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     for i, spec in enumerate(cfg.all_specs):
         p = params["layers"][i]
         if remat:
-            # the layers draw no random numbers: no RNG state to replay
-            x, aux = checkpoint(_train_layer, cfg, spec, p, x, positions,
-                                enc_out, use_reentrant=False,
-                                preserve_rng_state=False)
+            x, aux = _remat(cfg, _train_layer, cfg, spec, p, x, positions,
+                            enc_out)
         else:
             c = cache[i] if cache is not None else None
             x, nc, aux = _apply_layer(cfg, spec, p, x, positions=positions,
@@ -492,7 +539,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     the last, and the final norm and unembedding act per position, so the
     result is the same without the (B, S, V) tensor."""
     B, S = tokens.shape
-    cache = init_cache(cfg, B, cache_len or S, tokens.device)
+    cache = spmd_cache(cfg, B, cache_len or S, tokens)
     x, new_cache, aux = _backbone(cfg, params, tokens, "prefill", cache, 0,
                                   frames)
     logits = _unembed(cfg, params, x[:, -1:])[:, -1]

@@ -1054,3 +1054,94 @@ def test_cuda_moe_ffn_matches_cpu(cuda):
             torch.testing.assert_close(gaux[key].cpu(), waux[key],
                                        atol=1e-5, rtol=1e-5)
     assert float(gaux["dropped_frac"]) > 0
+
+
+# -- the SPMD layer: the kernels' custom ops, DTensor serving, flash decode ----
+
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch import shardings as tshardings  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_custom_ops_match_twins(cuda, dtype):
+    """Each kernel's custom op launches it (counted) and equals its plain
+    twin; its fake implementation gives the real output's shape, dtype and
+    strides."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = (torch.randn((2, 64, n, 64), generator=g, device=cuda)
+               .to(dtype).transpose(1, 2) for n in (4, 2, 2))
+    fa.reset_launches()
+    got = fa_ops.flash_attention_op(q, k, v, True, 24, 0.0, None)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, causal=True, window=24)
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    fake = fa_ops._flash_attention_fake(q, k, v, True, 24, 0.0, None)
+    assert (fake.shape, fake.dtype, fake.stride()) == (got.shape, got.dtype,
+                                                      got.stride())
+    x = torch.randn((2, 128, 4, 32), generator=g, device=cuda).to(dtype)
+    dt = torch.rand((2, 128, 4), generator=g, device=cuda) * 0.1
+    A = -torch.rand((4,), generator=g, device=cuda)
+    Bm, Cm = (torch.randn((2, 128, 32), generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    ss.reset_launches()
+    y, st = ss_ops.ssd_scan_op(x, dt, A, Bm, Cm, 64)
+    assert ss.LAUNCHES["ssd_scan"] == 1
+    wy, wst = ssd_ref(x, dt, A, Bm, Cm, 64)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st.float(), wst.float(), atol=tol, rtol=tol)
+    fy, fst = ss_ops._ssd_scan_fake(x, dt, A, Bm, Cm, 64)
+    assert (fy.shape, fst.shape, fy.dtype) == (y.shape, st.shape, y.dtype)
+
+
+def test_cuda_dtensor_serve_on_a_one_rank_mesh_equals_plain(cuda, tmp_path):
+    """A reduced internlm2-1.8b (head_dim 32) whose parameters are DTensors
+    on a real (1, 1) mesh of a one-rank NCCL world: ``serve_batch`` gives
+    the plain run's ids, and its prefill launches flash once per layer
+    through the kernel's sharding rule."""
+    import dataclasses
+
+    import torch.distributed as dist
+    cfg = dataclasses.replace(reduced(get_config("internlm2-1.8b")),
+                              head_dim=32)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dparams = _to_device(params, cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40),
+                                                dtype=np.int32)
+    want, _ = tserve.serve_batch(cfg, dparams, prompts, 4, device=cuda)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        placed = tshardings.distribute(
+            mesh, dparams, tshardings.param_pspecs(cfg, dparams, mesh))
+        fa.reset_launches()
+        got, _ = tserve.serve_batch(cfg, placed, prompts, 4, device=cuda)
+        launched = fa.LAUNCHES["flash_attention"]
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(got, want)
+    assert launched == cfg.num_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_sdpa(cuda, dtype):
+    """Flash decode over a cache of 8,192 + 40 slots, 8,000 of them valid,
+    with a window and a softcap, against sdpa on the card."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, KV, hd, Skv, kv_len = 2, 8, 2, 64, 8232, 8000
+    q = torch.randn((B, 1, H, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, Skv, KV, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    for window, cap in ((None, 0.0), (3000, 30.0)):
+        kw = dict(kv_len=kv_len, window=window, attn_softcap=cap,
+                  q_offset=kv_len - 1)
+        got = tlayers.flash_decode(q, k, v, **kw)
+        want = tlayers.sdpa(q, k, v, causal=True, **kw)
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)

@@ -640,6 +640,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             gen, _ = serve.serve_batch(cfg, params, np.zeros((1, 8), np.int32),
                                        2, device="cpu")
             assert gen.shape == (1, 2)
+        # the SPMD layer: rules on an abstract mesh, the dry run's modules
+        from repro_torch import pjit_utils
+        from repro_torch.launch import dryrun, op_analysis, shardings, specs
+        from repro_torch.launch.mesh import AbstractMesh
+        cfg = get_config("internlm2-1.8b")
+        ps = shardings.param_pspecs(cfg, specs.params_struct(cfg),
+                                    AbstractMesh((16, 16), ("data", "model")))
+        assert tuple(ps["layers"][0]["attn"]["wq"]["w"]) == (None, "model")
+        assert not pjit_utils.spmd_enabled() and dryrun and op_analysis
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                             "lachesis"))

@@ -256,9 +256,26 @@ def test_advise_over_given_candidates_and_none_lowering():
                    analyze=lambda *a, **k: 1 / 0)
 
 
-def test_advise_needs_an_injected_analyze():
-    with pytest.raises(ValueError, match="XLA"):
-        tsa.advise("qwen1.5-110b", "decode_32k")
+def test_advise_needs_an_injected_analyze(monkeypatch):
+    """No longer: without ``analyze=`` the port scores candidates with its
+    own dry run (``launch/dryrun.analyze_cell`` on the fake 256-rank
+    world), as the reference does with its own.  On a small decode cell
+    (internlm2-1.8b, 128 sequences over a 1,024-slot cache) it returns a
+    decision, every default candidate in the trail with its record."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    monkeypatch.setitem(SHAPES, "decode_1k",
+                        ShapeSpec("decode_1k", 1024, 128, "decode"))
+    dec = tsa.advise("internlm2-1.8b", "decode_1k")
+    names = [c.name for c in jsa.DEFAULT_CANDIDATES["decode"]]
+    assert [t["candidate"] for t in dec.trail] == names
+    assert not any("error" in t for t in dec.trail)
+    assert dec.winner.name in names and dec.cell == ("internlm2-1.8b",
+                                                     "decode_1k", False)
+    assert dec.dominant_term_s == min(tsa.dominant_term(t)
+                                      for t in dec.trail) > 0
+    assert all(t["shape"] == "decode_1k" and t["chips"] == 256
+               for t in dec.trail)
 
 
 def test_dominant_term_and_default_candidates_match_reference():
