@@ -176,7 +176,24 @@ Phases (any failure exits non-zero before the result line):
    24 flash launches in its prefill; the dry run of that prefill on a
    one-rank fake mesh beside the measured prefill seconds; and the
    kernels' custom ops against their bare launchers, host microseconds a
-   call.
+   call;
+16. a stored dataset on a mesh of several positions: phase 4's SF-10
+   lineitem written by orderkey, placed with ``device_put_dataset`` and
+   repartitioned to partkey shard to shard (``repartition(mesh=)``: each
+   shard hashes and orders its rows on its device, runs are copied to
+   their destination blocks, each destination scatters its own) onto (a)
+   ``Mesh([card] * 4, ("data",))``, (b) a (2, 2) ("data", "model") mesh
+   over the card and (c) a mesh over the visible cards (the largest
+   divisor of m not above their count; one card here); (d)
+   ``apply_decision(mesh=)`` onto (a)'s mesh from a placed generation.
+   Every shard bit-equal to the matching block of phase 4's host layout,
+   no column read whole on one device, the hash kernels' launches equal
+   to a CPU dry run's (``P16_LAUNCHES``); the wall after a synchronize,
+   each step's CUDA-event time (source hash and order, copies, destination
+   scatter) from a second, direct call, and the bytes that crossed shards
+   from the histograms.  Then q04-like over SF-1 orders and lineitem, with
+   lineitem placed on (a)'s mesh by ``apply_decision(mesh=)``, equal to
+   the host backend's.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -192,7 +209,9 @@ kernels), each of phase 13's serves (flash attention, once per layer in
 the prefill), each of phase 14's (flash attention: 12 per
 recurrentgemma-9b prefill, 36 per whisper-small prefill) and each part of
 phase 15 that runs the card (flash attention: 24 per prefill of (a), 48
-per train step of (b), 24 in (d)'s prefill).
+per train step of (b), 24 in (d)'s prefill), and each repartition of
+phase 16 (the hash-partition kernels, equal to the counts a CPU dry run
+predicts).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -3027,7 +3046,8 @@ def p13_mesh(torch, np, lt, tcore, hp, lineitem, want, steps,
     mesh, then once more through ``apply_decision(mesh=)``; returns the
     hash kernels' launches.  ``device="cpu"`` is the CPU dry run
     (``tests/test_torch_sharding.py``)."""
-    from repro_torch.core.sharding_bridge import Mesh, sharding_for, sharding_of
+    from repro_torch.core.sharding_bridge import (Mesh, ShardedColumn,
+                                                  sharding_for, sharding_of)
     mesh = Mesh([torch.device(device)], ("data",))
     wl = lt.Workload("sf10")
     li = wl.scan("lineitem")
@@ -3056,8 +3076,8 @@ def p13_mesh(torch, np, lt, tcore, hp, lineitem, want, steps,
             raise AssertionError(f"{what}: the store does not serve the "
                                  "placed generation")
         for k, col in ds.columns.items():
-            if not isinstance(col, torch.Tensor) \
-                    or col.device != mesh.devices.flat[0]:
+            if not isinstance(col, ShardedColumn) \
+                    or col.devices != [mesh.devices.flat[0]]:
                 raise AssertionError(f"{what}: column {k} is not on the "
                                      "mesh's device")
             if sharding_of(ds, k) != sharding_for(mesh, ds.partitioner,
@@ -3885,6 +3905,305 @@ def p15_op_overhead(torch, fa, ss, card):
     return rows
 
 
+# -- phase 16: a stored dataset on a mesh of several positions ----------------
+
+#: the steps of phase 16 that repartition SF-10 lineitem onto a mesh: (a) 4
+#: positions on ("data",), (b) (2, 2) on ("data", "model"), (c) the visible
+#: cards, (d) ``apply_decision(mesh=)`` onto (a)'s mesh
+P16_STEPS = ("4", "2x2", "cards", "apply")
+#: the hash kernels' exact launches in (a), (b) and (d), predicted by a CPU
+#: dry run with the shuffles in the card's fused mode
+#: (``tests/test_torch_mesh_store.py``): one hash of each source block's
+#: rows, one ``scatter_perm`` ordering them by pid (none where there is one
+#: destination block) and one ``scatter_perm`` scattering each destination
+#: block; (c) depends on the cards (:func:`p16_card_launches`)
+P16_LAUNCHES = {
+    "4": {"hash_partition": 4, "hash_partition_padded": 0,
+          "scatter_perm": 8},
+    "2x2": {"hash_partition": 2, "hash_partition_padded": 0,
+            "scatter_perm": 4},
+    "apply": {"hash_partition": 4, "hash_partition_padded": 0,
+              "scatter_perm": 8},
+}
+
+
+def p16_extent(cards: int) -> int:
+    """The largest divisor of M no larger than ``cards``."""
+    return max(e for e in range(1, max(cards, 1) + 1) if M % e == 0)
+
+
+def p16_card_launches(cards: int) -> dict:
+    e = p16_extent(cards)
+    return {"hash_partition": e, "hash_partition_padded": 0,
+            "scatter_perm": 2 * e if e > 1 else 1}
+
+
+def p16_check_shards(np, ds, mesh, want, what):
+    """Every shard of every column bit-equal to the matching block of the
+    host layout ``want``, placed ``P("data", None, ...)`` on ``mesh``."""
+    from repro_torch.core.sharding_bridge import (ShardedColumn,
+                                                  sharding_for, sharding_of)
+    if not np.array_equal(ds.counts, want["counts"]):
+        raise AssertionError(f"{what}: counts differ from the host backend's")
+    extent = mesh.shape["data"]
+    for k, col in ds.columns.items():
+        if not isinstance(col, ShardedColumn) or sharding_of(ds, k) != \
+                sharding_for(mesh, ds.partitioner, extra_dims=col.dim() - 2):
+            raise AssertionError(f"{what}: column {k} placed as "
+                                 f"{sharding_of(ds, k)}")
+        ref = want["columns"][k]
+        shards = list(col.shards())
+        if len(shards) != mesh.devices.size or \
+                {(s.start, s.stop) for _, _, s, _ in shards} != {
+                    (j * M // extent, (j + 1) * M // extent)
+                    for j in range(extent)}:
+            raise AssertionError(f"{what}: column {k} has shards "
+                                 f"{[s for _, _, s, _ in shards]}")
+        for idx, dev, sl, t in shards:
+            if dev != mesh.devices[idx] or t.device != dev:
+                raise AssertionError(f"{what}: column {k} shard {idx} is "
+                                     f"on {t.device}, not {dev}")
+            got = t.cpu().numpy()
+            if got.dtype != ref.dtype or got.shape != ref[sl].shape \
+                    or not np.array_equal(got, ref[sl]):
+                raise AssertionError(f"{what}: column {k} shard {idx} "
+                                     "differs from the host backend's")
+
+
+def p16_step_times(torch, np, tdr, placed, cand, mesh, device):
+    """A second, direct ``sharded_repartition_dataset`` of ``placed``:
+    (host seconds, {step: (CUDA-event seconds, the slowest device's; host
+    seconds issuing it)}, the rows and bytes that crossed shards, reckoned
+    from the histograms, and on the card a third call traced by
+    torch.profiler: (device-busy ms, wall ms, {kernel: ms}))."""
+    devs = list(dict.fromkeys(mesh.devices.flat))
+    marks = []
+
+    def mark(name, info):
+        evs = {}
+        if device == "cuda":
+            for d in devs:
+                with torch.cuda.device(d):
+                    evs[d] = torch.cuda.Event(enable_timing=True)
+                    evs[d].record()
+        marks.append((name, evs, info, time.perf_counter()))
+
+    def sync():
+        if device == "cuda":
+            for d in devs:
+                torch.cuda.synchronize(d)
+
+    sync()
+    t0 = time.perf_counter()
+    mark("start", {})
+    out = tdr.sharded_repartition_dataset(placed, cand, M, mesh,
+                                          on_step=mark)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = {}
+    for (_, ea, _, ha), (b, eb, _, hb) in zip(marks, marks[1:]):
+        steps[b] = (max(ea[d].elapsed_time(eb[d]) for d in devs) / 1e3
+                    if device == "cuda" else None, hb - ha)
+    hist = next(info["histograms"] for n, _, info, _ in marks
+                if n == "sources")
+    n_src, n_dst = hist.shape[0], mesh.shape["data"]
+    w = M // n_dst
+    stay = sum(int(hist[s, s * w:(s + 1) * w].sum())
+               for s in range(min(n_src, n_dst))) if n_src == n_dst else 0
+    crossed = int(hist.sum()) - stay
+    row = sum(v.element_size() * int(np.prod(v.shape[2:]))
+              for v in placed.columns.values())
+    del out
+    traced = None
+    if device == "cuda":
+        _, busy, twall, by_name = device_busy(
+            torch, lambda: tdr.sharded_repartition_dataset(placed, cand, M,
+                                                           mesh)[1])
+        traced = (busy, twall, by_name)
+    return wall, steps, crossed, crossed * row, traced
+
+
+def p16_mesh(torch, np, lt, tcore, lineitem, want, tables, card, reset,
+             read, device="cuda", steps=P16_STEPS):
+    """Phase 4's SF-10 lineitem written by orderkey and placed on meshes of
+    several positions, repartitioned to partkey shard to shard: (a) 4
+    positions over the card, (b) (2, 2) ("data", "model"), (c) the visible
+    cards (the largest divisor of M not above their count), (d)
+    ``apply_decision(mesh=)`` onto (a)'s mesh from a placed generation;
+    every shard bit-equal to ``want`` (phase 4's host layout), no column
+    read whole, the hash kernels' launches (``reset``/``read``) equal to
+    :data:`P16_LAUNCHES`.  Then (d) q04-like over ``tables`` (orders and
+    lineitem) with lineitem placed on (a)'s mesh by
+    ``apply_decision(mesh=)``, equal to the host backend's.  Returns the
+    launches per step.  ``device="cpu"`` is the CPU dry run
+    (``tests/test_torch_mesh_store.py``), with fused-mode counts."""
+    from repro_torch.core import sharding_bridge as sb
+    from repro_torch.core.executor import TableVal
+    from repro_torch.data import device_repartition as tdr
+    dev = torch.device(device)
+    if device == "cuda":
+        cards = torch.cuda.device_count()
+        card_devs = [torch.device("cuda", i) for i in range(cards)]
+    else:
+        cards, card_devs = 1, [dev]
+    extent = p16_extent(cards)
+    meshes = {"4": sb.Mesh([dev] * 4, ("data",)),
+              "2x2": sb.Mesh([[dev] * 2] * 2, ("data", "model")),
+              "cards": sb.Mesh(card_devs[:extent], ("data",))}
+    meshes["apply"] = meshes["4"]
+    expect = dict(P16_LAUNCHES, cards=p16_card_launches(cards))
+    print(f"phase 16: {cards} visible card(s), mesh (c) over {extent} of "
+          f"them (the largest divisor of m = {M}); {card}", flush=True)
+    wl = lt.Workload("sf10")
+    li = wl.scan("lineitem")
+    wl.partition(li["orderkey"])
+    wl.partition(li["partkey"])
+    by_order, by_part = tcore.enumerate_candidates(wl.graph, "lineitem")
+    sess = lt.Session(num_workers=M, device=device)
+    written = sess.write("lineitem", lineitem, by_order)
+    launches = {}
+
+    def timed(step, fn):
+        mesh = meshes[step]
+        sess.store.synchronize()
+        if device == "cuda":
+            for d in set(mesh.devices.flat):
+                torch.cuda.synchronize(d)
+        sb.reset_whole_reads()
+        reset()
+        t0 = time.perf_counter()
+        new, moved = fn(mesh)
+        sess.store.synchronize()
+        wall = time.perf_counter() - t0
+        launches[step] = read()
+        reads = sb.WHOLE_READS["columns"]
+        what = f"phase 16 ({step})"
+        if sess.store.read(new.name) is not new:
+            raise AssertionError(f"{what}: the store does not serve the "
+                                 "placed generation")
+        if sess.store.write_log[-1].get("path") != "d2d":
+            raise AssertionError(f"{what}: the repartition did not run d2d")
+        if reads:
+            raise AssertionError(f"{what}: {reads} columns read whole on "
+                                 "one device")
+        if launches[step] != expect[step]:
+            raise AssertionError(f"{what}: hash-kernel launches "
+                                 f"{launches[step]}, the dry run gives "
+                                 f"{expect[step]}")
+        p16_check_shards(np, new, mesh, want, what)
+        print(f"{what}: lineitem ({len(lineitem['orderkey'])} rows) "
+              f"repartitioned shard to shard on {mesh}: wall {wall:.4f} s "
+              f"after a synchronize, moved_bytes={moved}, every shard "
+              f"bit-equal to phase 4's host layout, no column read whole, "
+              f"launches {launches[step]} on {card}", flush=True)
+        return new
+
+    for step in [s for s in steps if s != "apply"]:
+        mesh = meshes[step]
+        placed = sb.device_put_dataset(mesh, written)
+        new = timed(step, lambda mesh: sess.store.repartition(
+            placed, by_part, name=f"lineitem@{step}", mesh=mesh))
+        del new
+        wall, times, crossed, crossed_b, traced = p16_step_times(
+            torch, np, tdr, placed, by_part, mesh, device)
+        fmt = ", ".join(
+            f"{k} {'not measured' if ev is None else f'{ev:.6f} s'} "
+            f"(host {h:.6f} s)" for k, (ev, h) in times.items())
+        print(f"phase 16 ({step}): a direct sharded_repartition_dataset "
+              f"{wall:.4f} s host; CUDA events per step (host seconds "
+              f"issuing it): {fmt}; crossed shards: {crossed} rows, "
+              f"{crossed_b} bytes (from the histograms) on {card}",
+              flush=True)
+        if traced is not None:
+            busy, twall, by_name = traced
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            n_dev = len(set(mesh.devices.flat))
+            idle = (f"idle {1 - busy / twall:.1%}" if n_dev == 1 else
+                    f"summed over {n_dev} cards")
+            print(f"phase 16 ({step}): traced: device busy {busy:.3f} of "
+                  f"{twall:.1f} ms wall ({idle}); top kernels "
+                  + ", ".join(f"{k[:48]} {v:.3f} ms" for k, v in top),
+                  flush=True)
+        del placed
+    if "apply" in steps:
+        # lineitem's current generation placed on the mesh, by orderkey
+        sess.repartition("lineitem", by_order, mesh=meshes["apply"])
+        dec = tcore.PartitioningDecision(
+            dataset="lineitem", candidate=by_part, features=[], consumers=[],
+            action_index=0, state=None, elapsed_s=0.0)
+        timed("apply", lambda mesh: tcore.apply_decision(sess.store, dec,
+                                                         mesh=mesh))
+        p16_consumer(torch, np, lt, tcore, TableVal, tables, meshes["4"],
+                     card, device)
+    del sess, written
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def p16_consumer(torch, np, lt, tcore, TableVal, tables, mesh, card,
+                 device):
+    """Phase 3's q04-like over orders and lineitem, lineitem placed on
+    ``mesh`` by ``apply_decision(mesh=)`` (by orderkey): verdicts and every
+    node's columns equal to the host backend's after the same decision."""
+    from repro_torch.core.sharding_bridge import sharding_for, sharding_of
+    orders, lineitem = tables[0], tables[1]
+    build = tpch_queries(lt.Workload)["q04"][0]
+    res = {}
+    for backend in ("device", "host"):
+        wl = build()
+        kw = {"device": device} if backend == "device" else {}
+        sess = lt.Session(num_workers=M, backend=backend, **kw)
+        sess.write("orders", orders,
+                   tcore.enumerate_candidates(wl.graph, "orders")[0])
+        sess.write("lineitem", lineitem)
+        dec = tcore.PartitioningDecision(
+            dataset="lineitem",
+            candidate=tcore.enumerate_candidates(wl.graph, "lineitem")[0],
+            features=[], consumers=[], action_index=0, state=None,
+            elapsed_s=0.0)
+        placed, _ = tcore.apply_decision(
+            sess.store, dec, mesh=mesh if backend == "device" else None)
+        if backend == "device" and sharding_of(placed, "orderkey") != \
+                sharding_for(mesh, placed.partitioner):
+            raise AssertionError("phase 16 (d): lineitem is not placed on "
+                                 "the mesh")
+        sess.store.synchronize()
+        t0 = time.perf_counter()
+        res[backend] = sess.run(wl)
+        sess.store.synchronize()
+        wall = time.perf_counter() - t0
+        st = res[backend].stats
+        print(f"phase 16 (d): q04-like over lineitem "
+              f"({len(lineitem['orderkey'])} rows"
+              f"{', placed on ' + str(mesh) if backend == 'device' else ''})"
+              f" backend={backend}: wall_s={wall:.4f} "
+              f"elided={st.shuffles_elided} "
+              f"shuffles={st.shuffles_performed}", flush=True)
+    d, h = res["device"], res["host"]
+    if (d.stats.shuffles_elided, d.stats.shuffles_performed) != \
+            (h.stats.shuffles_elided, h.stats.shuffles_performed) \
+            or d.stats.shuffles_elided != 2:
+        raise AssertionError("phase 16 (d): verdicts differ, or a join "
+                             "shuffle was not elided")
+    for nid, hv in h.values.items():
+        if not isinstance(hv, TableVal):
+            continue
+        dv = d.values[nid]
+        if not np.array_equal(dv.counts, hv.counts):
+            raise AssertionError(f"phase 16 (d): node {nid} counts differ")
+        for k, col in hv.columns.items():
+            got = dv.columns[k]
+            if got.dtype != col.dtype or not np.array_equal(got, col):
+                raise AssertionError(f"phase 16 (d): node {nid} column {k} "
+                                     "differs from the host backend's")
+            if col.dtype.kind == "f" and not np.isfinite(col).all():
+                raise AssertionError(f"phase 16 (d): non-finite {k}")
+    print(f"phase 16 (d): q04-like over the placed lineitem equal to the "
+          f"host backend on every node, both join shuffles elided, on "
+          f"{card}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3987,7 +4306,6 @@ def main() -> int:
     hp.reset_launches()
     t9 = time.perf_counter()
     child = run_durable(torch, np, lt, tcore, lineitem10, tpch1)
-    del tpch1
     phase9 = {k: v + child[k] for k, v in hp.LAUNCHES.items()}
     for k in ("hash_partition", "scatter_perm"):
         if phase9[k] == 0:
@@ -4027,7 +4345,6 @@ def main() -> int:
     t13 = time.perf_counter()
     mesh_launches = p13_mesh(torch, np, lt, tcore, hp, lineitem10,
                              sf10_host_moved, sf10_steps, export_layout, card)
-    del lineitem10, sf10_host_moved
     for k, v in mesh_launches.items():
         launches[k] += v
     print(f"phase 13 (a): done in {time.perf_counter() - t13:.1f} s",
@@ -4086,6 +4403,17 @@ def main() -> int:
           flush=True)
     print(f"phase 15: done in {time.perf_counter() - t15:.1f} s on {card}",
           flush=True)
+
+    t16 = time.perf_counter()
+    phase16 = p16_mesh(torch, np, lt, tcore, lineitem10, sf10_host_moved,
+                       tpch1, card, hp.reset_launches,
+                       lambda: dict(hp.LAUNCHES))
+    del lineitem10, sf10_host_moved, tpch1
+    for counts in phase16["launches"].values():
+        for k, v in counts.items():
+            launches[k] += v
+    print(f"phase 16: done in {time.perf_counter() - t16:.1f} s on {card}; "
+          f"launches {phase16['launches']}", flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

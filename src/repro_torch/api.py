@@ -339,7 +339,9 @@ class Session:
                     swap: bool = True):
         """Repartition a stored dataset (publishes a new generation; the
         affected cached plans miss on their next lookup).  ``mesh`` (a
-        one-device ``core.sharding_bridge.Mesh``) places the result on it."""
+        ``core.sharding_bridge.Mesh`` of any number of devices) places the
+        result on it; a dataset already placed on one is repartitioned
+        shard to shard."""
         ds = self.store.read(name)
         return self.store.repartition(ds, partitioner, mesh=mesh, swap=swap)
 

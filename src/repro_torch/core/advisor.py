@@ -140,7 +140,8 @@ def apply_decision(store, decision: PartitioningDecision, *, mesh=None,
     flip the dataset to the new generation so readers never observe a
     half-shuffled table (DESIGN §8).  Returns ``(new_dataset, bytes_moved)``.
 
-    ``mesh`` (a one-device ``core.sharding_bridge.Mesh``) places the result
-    on it, as ``PartitionStore.repartition(mesh=)`` does."""
+    ``mesh`` (a ``core.sharding_bridge.Mesh`` of any number of devices)
+    places the result on it, as ``PartitionStore.repartition(mesh=)`` does;
+    a dataset already placed on a mesh is repartitioned shard to shard."""
     ds = store.read(decision.dataset)
     return store.repartition(ds, decision.candidate, mesh=mesh, swap=swap)

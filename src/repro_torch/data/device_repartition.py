@@ -12,7 +12,10 @@ and permutes/scatters on the device.  Three consumers:
   a flat intermediate into worker segments), and
 * :func:`device_repartition_dataset` — the device-to-device fast path that
   reshuffles a device-resident ``StoredDataset`` into a new layout without
-  a host ``gather()``.
+  a host ``gather()``, and
+* :func:`sharded_repartition_dataset` — the same for a dataset placed on a
+  mesh of several devices, shard to shard: every shard hashes its own rows
+  and sends each destination block its run of them.
 
 **Dispatch plans.**  A :class:`ShufflePlan` is the hash → counting-sort →
 permute/scatter pipeline for one ``(shape-bucket, dtype-set, m, capacity)``
@@ -70,6 +73,11 @@ Columns = Dict[str, Any]
 def resolve_device(device) -> torch.device:
     from ..core.backends import resolve_device as resolve
     return resolve(device)
+
+
+def _sharded(v) -> bool:
+    from ..core.sharding_bridge import ShardedColumn
+    return isinstance(v, ShardedColumn)
 
 
 def to_numpy(v) -> np.ndarray:
@@ -356,6 +364,8 @@ def _evict_to_capacity() -> None:
 
 
 def _get_plan(key: Tuple, build: Callable[[], Callable]) -> ShufflePlan:
+    # keyed by shape, not device: a plan's function holds no tensor (it
+    # allocates on its inputs' device), so the shards of a mesh share it
     with _PLANS_LOCK:
         plan = _PLANS.get(key)
         if plan is None:
@@ -679,16 +689,63 @@ def _flat_slots(ds, v):
     return v.reshape((ds.num_workers * ds.capacity,) + tuple(v.shape[2:]))
 
 
+def _block_valid_index(ds, sl: slice) -> np.ndarray:
+    """The valid slots of the block of ``ds``'s leading axis that ``sl``
+    covers, as flat indices into that block, worker-major: the block's own
+    slice of :func:`_valid_slot_index`, less the block's first slot.  A
+    bucketed column is one block over every slot."""
+    if getattr(ds, "capacity_map", None) is not None:
+        return _valid_slot_index(ds)
+    counts = np.asarray(ds.counts)[sl]
+    return valid_slot_index(
+        counts, np.arange(counts.shape[0], dtype=np.int64) * ds.capacity)
+
+
+def flatten_blocks(ds, columns: Columns) -> Dict[str, List[torch.Tensor]]:
+    """The valid rows of each block of every sharded column in
+    ``columns`` (``core.sharding_bridge.ShardedColumn``\\ s of ``ds``),
+    flat and on the block's own device, in block order: concatenated, the
+    worker-major order ``StoredDataset.gather()`` gives.  Each block's
+    index goes to its device once for all columns."""
+    idx_dev: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+    out: Dict[str, List[torch.Tensor]] = {}
+    for k, v in columns.items():
+        rows = []
+        for sl, t in v.blocks():
+            key = (sl.start, t.device)
+            if key not in idx_dev:
+                idx_dev[key] = torch.from_numpy(
+                    _block_valid_index(ds, sl)).to(t.device)
+            flat = t if getattr(ds, "capacity_map", None) is not None \
+                else t.reshape((-1,) + tuple(t.shape[2:]))
+            rows.append(flat.index_select(0, idx_dev[key]))
+        out[k] = rows
+    return out
+
+
 def flatten_dataset(ds, device_only: bool = False) -> Columns:
     """Flatten a StoredDataset's padded columns back to flat rows *without*
     a host round-trip: device-resident columns are gathered with a device
-    index over :func:`_valid_slot_index`; host columns take the numpy
-    path (skipped entirely under ``device_only``).
+    index over :func:`_valid_slot_index`; a column placed on a mesh is
+    gathered shard by shard (:func:`flatten_blocks`) onto the mesh's first
+    device, a whole-column read that ``core.sharding_bridge.WHOLE_READS``
+    counts; host columns take the numpy path (skipped entirely under
+    ``device_only``).
     """
-    idx = _valid_slot_index(ds)
+    from ..core.sharding_bridge import count_whole_read
+    blocks = flatten_blocks(ds, {k: v for k, v in ds.columns.items()
+                                 if _sharded(v)})
+    idx = None
     idx_dev: Dict[torch.device, torch.Tensor] = {}
     out: Columns = {}
     for k, v in ds.columns.items():
+        if k in blocks:
+            count_whole_read()
+            first = v.sharding.mesh.devices.flat[0]
+            out[k] = torch.cat([b.to(first) for b in blocks[k]])
+            continue
+        if idx is None and (isinstance(v, torch.Tensor) or not device_only):
+            idx = _valid_slot_index(ds)
         if isinstance(v, torch.Tensor):
             if v.device not in idx_dev:
                 idx_dev[v.device] = torch.from_numpy(idx).to(v.device)
@@ -730,3 +787,164 @@ def device_repartition_dataset(ds, partitioner, num_partitions: int, *,
     columns = device_scatter_padded(flat, pids, counts, capacity_map=cmap,
                                     mode=mode, device=dev)
     return columns, counts, cmap
+
+
+def _pid_order(pids, hist: np.ndarray, mode: str,
+               device: torch.device) -> torch.Tensor:
+    """The stable order of rows by pid on ``device``: fused — the
+    ``scatter_perm`` kernel's counting-sort destinations, inverted;
+    hostperm — the numpy radix sort of host pids."""
+    if mode == "fused":
+        dest = scatter_permutation(
+            pids, torch.from_numpy(hist.astype(np.int32)).to(device))
+        order = torch.empty_like(dest)
+        order[dest] = torch.arange(dest.numel(), dtype=torch.int32,
+                                   device=device)
+        return order
+    return torch.from_numpy(host_counting_order(to_numpy(pids))).to(device)
+
+
+def _cat_pids(pids: List[Any], device: torch.device):
+    """Per-source pids (device tensors, or host arrays in hostperm mode)
+    concatenated in source order, on ``device`` or on the host."""
+    if any(isinstance(p, torch.Tensor) for p in pids):
+        return torch.cat([torch.as_tensor(p).to(device) for p in pids])
+    return np.concatenate(pids)
+
+
+def sharded_repartition_dataset(ds, partitioner, num_partitions: int, mesh,
+                                data_axes: Tuple[str, ...] = ("data",),
+                                plan_capacity: Optional[Callable] = None, *,
+                                mode: Optional[str] = None,
+                                on_step: Optional[Callable] = None
+                                ) -> Tuple[Columns, np.ndarray,
+                                           Optional[CapacityMap]]:
+    """Shard-to-shard repartition of a dataset placed on a mesh (every
+    column a ``core.sharding_bridge.ShardedColumn``) into a new layout
+    placed on ``mesh``, worker axis over ``data_axes``.
+
+    (a) On each source block's device: flatten its valid rows
+    (:func:`flatten_blocks`), evaluate the candidate's key projection and
+    hash it (:func:`shuffle_pids`: the ``hash_partition`` kernel, global
+    pids over ``m`` and the block's histogram).  (b) The histograms are
+    summed on the host, the only host crossing, as on one device;
+    ``plan_capacity(counts)`` picks uniform or bucketed as on one device.
+    (c) Uniform: each source orders its rows by pid (the stable
+    ``scatter_perm`` over ``m`` bins), so destination block ``j``'s rows
+    are one contiguous run, copied to ``j``'s device.  (d) Each destination
+    concatenates its runs in source order and scatters them
+    (:func:`device_scatter_padded`: ``scatter_perm`` again) into ``(m /
+    extent, capacity, ...)`` with local pids ``p - j * m / extent`` and the
+    global ``capacity = max(counts)``, so every block has the shape the
+    single-device layout's rows would have.  With one destination block no
+    source needs ordering: its runs are its rows.
+
+    Row order (the bit-identical guarantee, DESIGN §5 / Alg. 4's
+    elision, rests on it): the sources hold contiguous worker blocks in
+    rank order, and every step is stable — the order by pid, the
+    concatenation in source order, the counting sort of the scatter — so
+    each worker's rows land in the order a single-device repartition of
+    ``gather()``'s rows gives them, which is the reference's.
+
+    (e) Bucketed: a capacity map spans every partition, so the shards are
+    flattened onto the mesh's first device in worker order (counted in
+    ``core.sharding_bridge.WHOLE_READS``) and scattered there with the
+    pids already computed; the columns come back placed ``P()``,
+    replicated on every mesh position, as the reference's bucketed result
+    of a placed dataset is.  ``mesh=None``
+    takes the single-device path (:func:`device_repartition_dataset`,
+    which flattens the same way) and returns plain tensors.
+
+    Each launch runs on the current stream of its own device (the
+    launchers enter the tensor's device); a copy between devices waits on
+    both devices' current streams, so a destination never reads a run
+    before its copy lands.  ``on_step(name, info)``, if given, is called
+    after each step ("sources", with the ``(n_src, m)`` histograms in
+    ``info["histograms"]``; "copies"; "destinations") — a caller that
+    records CUDA events there times each step."""
+    from ..core.sharding_bridge import (NamedSharding, P, ShardedColumn,
+                                        block_devices, count_whole_read,
+                                        sharding_for)
+    m = int(num_partitions)
+    if mesh is None:
+        return device_repartition_dataset(ds, partitioner, m, mode=mode,
+                                          plan_capacity=plan_capacity)
+    extent = int(np.prod([mesh.shape[a] for a in data_axes]))
+    if m % extent:
+        raise ValueError(f"m={m} not divisible by mesh data extent {extent}")
+    if not ds.columns or not all(_sharded(v)
+                                 for v in ds.columns.values()):
+        raise ValueError("every column must be placed on a mesh")
+    step = on_step or (lambda name, info: None)
+    names = list(ds.columns)
+    first_col = ds.columns[names[0]]
+    src_dev = [t.device for _, t in first_col.blocks()]
+    src = flatten_blocks(ds, ds.columns)
+    pids: List[Any] = []
+    hists: List[np.ndarray] = []
+    for s, dev in enumerate(src_dev):
+        flat = {k: src[k][s] for k in names}
+        if flat[names[0]].shape[0] == 0:
+            pids.append(np.zeros(0, np.int32))
+            hists.append(np.zeros(m, np.int64))
+            continue
+        p, c = shuffle_pids(partitioner.key_fn()(flat), m, mode=mode,
+                            device=dev)
+        pids.append(p)
+        hists.append(c)
+    counts = np.sum(hists, axis=0).astype(np.int64)
+    cmap = plan_capacity(counts) if plan_capacity is not None else None
+    if cmap is not None:
+        first = mesh.devices.flat[0]
+        flat = {}
+        for k in names:
+            count_whole_read()
+            flat[k] = torch.cat([b.to(first) for b in src[k]])
+        columns = device_scatter_padded(flat, _cat_pids(pids, first),
+                                        counts, capacity_map=cmap,
+                                        mode=mode, device=first)
+        whole = NamedSharding(mesh, P())
+        return ({k: ShardedColumn(whole, [v]) for k, v in columns.items()},
+                counts, cmap)
+
+    dst_dev = block_devices(sharding_for(mesh, partitioner, data_axes))
+    w = m // len(dst_dev)
+    cap = int(counts.max()) if counts.sum() else 0
+    # runs[j][s]: source s's rows bound for destination block j
+    runs: List[List[Columns]] = [[] for _ in dst_dev]
+    for s, dev in enumerate(src_dev):
+        rows = {k: src[k][s] for k in names}
+        if len(dst_dev) > 1 and rows[names[0]].shape[0]:
+            order = _pid_order(pids[s], hists[s],
+                               _resolve_mode(mode, dev), dev)
+            rows = {k: v.index_select(0, order) for k, v in rows.items()}
+        bounds = np.concatenate([[0], np.cumsum(hists[s])])
+        for j in range(len(dst_dev)):
+            a, b = int(bounds[j * w]), int(bounds[(j + 1) * w])
+            runs[j].append({k: v[a:b] for k, v in rows.items()})
+    step("sources", {"histograms": np.stack(hists)})
+    arrived = [[{k: v.to(dst_dev[j]) for k, v in run.items()}
+                for run in runs[j]] for j in range(len(dst_dev))]
+    step("copies", {})
+    blocks: Dict[str, List[torch.Tensor]] = {k: [] for k in names}
+    for j, dev in enumerate(dst_dev):
+        local = np.stack([h[j * w:(j + 1) * w] for h in hists])  # (n_src, w)
+        n_j = int(local.sum())
+        flat = {k: torch.cat([run[k] for run in arrived[j]]) for k in names}
+        if len(dst_dev) == 1:            # the runs are the unordered rows
+            local_pids = _cat_pids(pids, dev)
+        else:
+            # each source's run is ordered by pid: its local pids repeat
+            # 0..w-1 by the source's counts
+            local_pids = torch.repeat_interleave(
+                torch.arange(w, dtype=torch.int32, device=dev).repeat(
+                    len(src_dev)),
+                torch.from_numpy(local.reshape(-1)).to(dev), output_size=n_j)
+        cols = device_scatter_padded(flat, local_pids, local.sum(axis=0),
+                                     capacity=cap, mode=mode, device=dev)
+        for k in names:
+            blocks[k].append(cols[k])
+    step("destinations", {})
+    return ({k: ShardedColumn(sharding_for(mesh, partitioner, data_axes,
+                                           extra_dims=v[0].dim() - 2), v)
+             for k, v in blocks.items()}, counts, None)

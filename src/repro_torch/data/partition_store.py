@@ -52,12 +52,14 @@ from ..core.backends import resolve_backend, resolve_device
 from ..core.ir import to_numpy
 from ..core.partitioner import (HASH, PartitionerCandidate, RANDOM,
                                 ROUND_ROBIN)
+from ..core.sharding_bridge import ShardedColumn, count_whole_read
 from ..obs.tracer import recording as _recording
 from ..obs.tracer import span as _span
 from .capacity import CapacityMap, plan_capacity_map, valid_slot_index
 from .device_repartition import (device_repartition_dataset,
-                                 device_scatter_padded, flatten_dataset,
-                                 host_counting_sort_dest, shuffle_pids)
+                                 device_scatter_padded, flatten_blocks,
+                                 flatten_dataset, host_counting_sort_dest,
+                                 sharded_repartition_dataset, shuffle_pids)
 
 
 Columns = Dict[str, Any]
@@ -68,7 +70,15 @@ DEFAULT_WRITE_LOG_CAP = 256
 
 
 def _numel(v) -> int:
-    return v.numel() if isinstance(v, torch.Tensor) else int(v.size)
+    return v.numel() if isinstance(v, (torch.Tensor, ShardedColumn)) \
+        else int(v.size)
+
+
+def _placed(ds) -> bool:
+    """Every column placed on a mesh (``sharding_bridge.device_put_dataset``
+    or a repartition onto one)."""
+    return bool(ds.columns) and all(isinstance(v, ShardedColumn)
+                                    for v in ds.columns.values())
 
 
 class RetiredGenerationError(KeyError):
@@ -111,8 +121,9 @@ class StoredDataset:
     ``(total_slots, ...)`` and partition ``i`` occupies the slot range
     ``[offsets[i], offsets[i] + capacities[i])`` — the skew-adaptive
     layout (DESIGN §12).  ``gather()`` produces the identical row order
-    for both.  Columns are numpy arrays (host backend) or torch tensors
-    (device backend)."""
+    for both.  Columns are numpy arrays (host backend), torch tensors
+    (device backend) or, placed on a mesh, ``ShardedColumn``\\ s (device
+    backend; each column carries its sharding)."""
     name: str
     columns: Columns                   # (m, capacity, ...) or (slots, ...)
     counts: np.ndarray                 # (m,) valid rows per worker
@@ -122,9 +133,6 @@ class StoredDataset:
     created_at: float = field(default_factory=time.time)
     generation: int = 0
     capacity_map: Optional[CapacityMap] = None
-    # column → NamedSharding, set by core.sharding_bridge.device_put_dataset
-    # (read with its sharding_of)
-    placement: Optional[Dict[str, Any]] = None
 
     @property
     def num_workers(self) -> int:
@@ -179,9 +187,10 @@ class StoredDataset:
 
     @property
     def backend(self) -> str:
-        """"device" when any column is a torch tensor (a spilled device
-        dataset reads "host" until a read prefetches it)."""
-        return "device" if any(isinstance(v, torch.Tensor)
+        """"device" when any column is a torch tensor or placed on a mesh
+        (a spilled device dataset reads "host" until a read prefetches
+        it)."""
+        return "device" if any(isinstance(v, (torch.Tensor, ShardedColumn))
                                for v in self.columns.values()) else "host"
 
     @property
@@ -198,12 +207,21 @@ class StoredDataset:
         """Materialize back to flat numpy rows, worker-major in rank order
         (:func:`~repro_torch.data.capacity.valid_slot_index`) — the same
         order for uniform and bucketed layouts.  Tensor columns are indexed
-        on their device and copied to the host once; memmap columns (a
-        spilled, or half-spilled, dataset) are read through their pages."""
+        on their device and copied to the host once; a column placed on a
+        mesh is indexed shard by shard, each block on its own device, and
+        counted as a whole-column read; memmap columns (a spilled, or
+        half-spilled, dataset) are read through their pages."""
         idx = valid_slot_index(np.asarray(self.counts), self.slot_offsets())
         idx_dev: Dict[torch.device, torch.Tensor] = {}
         out: Columns = {}
+        sharded = flatten_blocks(self, {k: v for k, v in self.columns.items()
+                                        if isinstance(v, ShardedColumn)})
         for k, v in self.columns.items():
+            if k in sharded:
+                count_whole_read()
+                out[k] = np.concatenate([t.cpu().numpy()
+                                         for t in sharded[k]])
+                continue
             flat = v if self.capacity_map is not None else v.reshape(
                 (self.total_slots,) + tuple(v.shape[2:]))
             if isinstance(v, torch.Tensor):
@@ -303,6 +321,10 @@ class PartitionStore:
         # when its device is CUDA and no card is present
         self.device = resolve_device(device) if b.device_resident \
             else torch.device("cpu")
+        # every card synchronize() waits on: the store's, and those of the
+        # meshes it repartitions from and onto
+        self._cards = {self.device} if self.device.type == "cuda" else set()
+        self._cards_lock = threading.Lock()
         # skew-adaptive layout (DESIGN §12): opt-in — when on, writes whose
         # histogram is skewed enough get a bucketed CapacityMap layout
         # instead of the uniform worst-case capacity
@@ -448,13 +470,26 @@ class PartitionStore:
         return r.apply(plan, abort_after=abort_after, on_abort=on_abort)
 
     def synchronize(self) -> None:
-        """Wait for the device work queued on the store's device (no-op on
-        the CPU).  Kernel launches are asynchronous: a host clock read
+        """Wait for the device work queued on the store's device and on
+        every card of the meshes it has repartitioned from or onto (no-op
+        on the CPU).  Kernel launches are asynchronous: a host clock read
         right after a device repartition would stop before its scatter and
         gathers end, so every wall that prices device work reads the clock
         after this."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._cards_lock:
+            cards = sorted(self._cards, key=str)
+        for card in cards:
+            torch.cuda.synchronize(card)
+
+    def _note_cards(self, mesh, ds: StoredDataset) -> None:
+        """Add the cards ``ds`` is placed on and ``mesh``'s to those
+        :meth:`synchronize` waits on."""
+        devs = [d for v in ds.columns.values()
+                if isinstance(v, ShardedColumn) for d in v.devices]
+        if mesh is not None:
+            devs += list(mesh.devices.flat)
+        with self._cards_lock:
+            self._cards.update(d for d in devs if d.type == "cuda")
 
     def _attach(self) -> None:
         """Load every dataset's newest consistent generation as memmap
@@ -1102,12 +1137,20 @@ class PartitionStore:
         generation under its own name: the whole shuffle materializes off
         to the side, then one atomic pointer flip publishes it.
 
-        Pass ``mesh`` (a one-device :class:`~repro_torch.core.
-        sharding_bridge.Mesh`) to place the result on it
-        (``sharding_bridge.device_put_dataset``), so repartitioned datasets
-        stay mesh-placed."""
+        Pass ``mesh`` (a :class:`~repro_torch.core.sharding_bridge.Mesh` of
+        any number of devices) to place the result on it, worker axis over
+        ``"data"``, so repartitioned datasets stay mesh-placed.  A dataset
+        already placed on a mesh goes shard to shard
+        (:func:`~.device_repartition.sharded_repartition_dataset`: the hash
+        kernel on every shard, rows copied between devices; only a bucketed
+        result is assembled on the mesh's first device); an unplaced one is
+        repartitioned on its
+        device and placed (``sharding_bridge.device_put_dataset``).  A
+        placed dataset with ``mesh=None`` is flattened onto its mesh's
+        first device and comes back unplaced, as in the reference."""
         if mesh is not None:
             from ..core.sharding_bridge import device_put_dataset
+        self._note_cards(mesh, ds)
         t0 = time.perf_counter()
         moved = int(ds.nbytes * (self.m - 1) / self.m)
         name = name or (ds.name if swap else ds.name + "@reparted")
@@ -1118,13 +1161,20 @@ class PartitionStore:
                     and partitioner.graph is not None
                     and getattr(partitioner, "kernel_dispatchable", True)):
                 rsp.set(path="d2d")
-                columns, counts, cmap = device_repartition_dataset(
-                    ds, partitioner, self.m, plan_capacity=self._plan_cmap)
+                shard_to_shard = mesh is not None and _placed(ds)
+                if shard_to_shard:
+                    columns, counts, cmap = sharded_repartition_dataset(
+                        ds, partitioner, self.m, mesh,
+                        plan_capacity=self._plan_cmap)
+                else:
+                    columns, counts, cmap = device_repartition_dataset(
+                        ds, partitioner, self.m,
+                        plan_capacity=self._plan_cmap)
                 new = StoredDataset(name=name, columns=columns, counts=counts,
                                     partitioner=partitioner,
                                     num_rows=int(counts.sum()),
                                     nbytes=ds.nbytes, capacity_map=cmap)
-                if mesh is not None:
+                if mesh is not None and not shard_to_shard:
                     new = device_put_dataset(mesh, new)
                 # the histogram reached the host early; the scatter and
                 # gathers may still run: the logged latency, and the

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ...core.partitioner import PartitionerCandidate
+from ...core.sharding_bridge import ShardedColumn
 from .segments import fsync_dir, segment_valid
 
 __all__ = ["Manifest", "RestoredPartitioner", "encode_partitioner",
@@ -110,9 +111,10 @@ def manifest_filename(generation: int) -> str:
 
 def column_meta(v) -> Tuple[np.dtype, Tuple[int, ...], int]:
     """numpy dtype, shape and byte count of a column, read from its
-    metadata: a device tensor is neither copied nor synchronized to learn
-    them (torch → numpy dtypes as ``Tensor.numpy()`` maps them)."""
-    if isinstance(v, torch.Tensor):
+    metadata: a device tensor, or a column placed on a mesh, is neither
+    copied nor synchronized to learn them (torch → numpy dtypes as
+    ``Tensor.numpy()`` maps them)."""
+    if isinstance(v, (torch.Tensor, ShardedColumn)):
         dt = torch.empty(0, dtype=v.dtype).numpy().dtype
         return dt, tuple(v.shape), v.numel() * v.element_size()
     a = np.asarray(v)                  # ndarray or memmap: no copy

@@ -551,6 +551,9 @@ __global__ void tile_dest_kernel(const int32_t* __restrict__ pids,
   }
 }
 
+// The SM count of the device current at the first launch, kept for every
+// later launch on any device: right where every card is the same part (the
+// H100s of one host), which is the only kind of mesh the port places on.
 int num_sms() {
   static int sms = 0;
   if (sms == 0) {

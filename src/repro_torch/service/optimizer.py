@@ -778,6 +778,10 @@ class Autopilot:
     construction invalidates exactly the cached PhysicalPlans that scan
     the repartitioned dataset (their cache key pins the generation) — the
     session re-plans on its next run and picks up the elisions.
+
+    ``mesh`` (a ``core.sharding_bridge.Mesh`` of any number of devices)
+    places every repartition the Autopilot applies on it; a dataset
+    already placed there is repartitioned shard to shard.
     """
 
     def __init__(self, session, *, clock: Optional[Callable[[], float]] = None,

@@ -622,6 +622,61 @@ def test_cuda_drift_scenario_applies_d2d_and_matches_host(cuda):
     assert launched["hash_partition"] >= 3 and launched["scatter_perm"] > 0
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_cuda_mesh_of_four_positions_matches_cpu(cuda, adaptive):
+    """A dataset placed on a 4-position mesh over the card and repartitioned
+    shard to shard equals the same on ``Mesh(["cpu"] * 4)``, shard for
+    shard; the uniform path launches one hash and two scatters per shard
+    and reads no column whole; an adaptive store over Zipf keys buckets
+    the result, replicated at every position."""
+    from repro_torch.core.sharding_bridge import (WHOLE_READS, Mesh,
+                                                  device_put_dataset,
+                                                  reset_whole_reads)
+    rng = np.random.default_rng(16)
+    n = 200_000
+    pk = rng.integers(0, 5_000, n)
+    if adaptive:
+        pk = np.minimum(rng.zipf(1.3, n), 100_000) - 1
+    data = {"orderkey": rng.integers(0, 50_000, n), "partkey": pk,
+            "qty": rng.integers(1, 50, n).astype(np.float32),
+            "vec": rng.normal(size=(n, 2)).astype(np.float32)}
+    wl = lachesis_torch.Workload("mesh")
+    li = wl.scan("lineitem")
+    wl.partition(li["orderkey"])
+    wl.partition(li["partkey"])
+    by_order, by_part = tcore.enumerate_candidates(wl.graph, "lineitem")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        store = lachesis_torch.Session(num_workers=8, device=dev,
+                                       adaptive_capacity=adaptive).store
+        mesh = Mesh([dev] * 4, ("data",))
+        placed = device_put_dataset(
+            mesh, store.write("lineitem", data, by_order))
+        tk.reset_launches()
+        reset_whole_reads()
+        new, _ = store.repartition(placed, by_part, mesh=mesh)
+        store.synchronize()
+        got[dev] = (new, dict(tk.LAUNCHES), WHOLE_READS["columns"])
+    (card, launched, reads), (cpu, _, _) = got["cuda"], got["cpu"]
+    np.testing.assert_array_equal(card.counts, cpu.counts)
+    assert (card.capacity_map is not None) == adaptive
+    for k, col in cpu.columns.items():
+        ours = list(card.columns[k].shards())
+        assert [s[:1] + s[2:3] for s in ours] == \
+            [s[:1] + s[2:3] for s in col.shards()]
+        for (_, d, _, t), (_, _, _, w) in zip(ours, col.shards()):
+            assert d.type == "cuda" and t.device.type == "cuda"
+            np.testing.assert_array_equal(t.cpu().numpy(), w.numpy(),
+                                          err_msg=k)
+    if adaptive:
+        assert reads == len(cpu.columns)
+        assert launched["hash_partition"] == 4
+    else:
+        assert reads == 0
+        assert launched == {"hash_partition": 4, "hash_partition_padded": 0,
+                            "scatter_perm": 8}
+
+
 def test_cuda_rebucket_stays_on_the_card_and_matches_host(cuda, monkeypatch):
     from repro_torch.data.partition_store import PartitionStore, StoredDataset
     from repro_torch.service import drift_tables, q_orderkey

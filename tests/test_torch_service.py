@@ -496,9 +496,13 @@ def test_store_cluster_and_mesh_surfaces():
     new, _ = store.repartition(keyed, _cand(tsvc, tcore), mesh=mesh)
     assert store.read(new.name) is new
     assert sharding_of(new, "orderkey").mesh == mesh
-    with pytest.raises(ValueError, match="torch.distributed"):
-        store.repartition(keyed, _cand(tsvc, tcore),
-                          mesh=Mesh(["cpu"] * 2, ("data",)))
+    two = Mesh(["cpu"] * 2, ("data",))
+    placed, _ = store.repartition(keyed, _cand(tsvc, tcore), mesh=two)
+    assert sharding_of(placed, "orderkey").mesh == two
+    assert [s for _, _, s, _ in placed.columns["orderkey"].shards()] == [
+        slice(0, 2), slice(2, 4)]
+    np.testing.assert_array_equal(placed.gather()["orderkey"],
+                                  new.gather()["orderkey"])
     # cluster actions forced on over a store with no health signals: the
     # phase runs and finds nothing, as in the reference
     forced = tsvc.StorageOptimizer(store, tcore.HistoryStore(),

@@ -4,8 +4,8 @@ sharding advisor (``core/sharding_advisor.py``), against the JAX package.
 
 The reference's mesh cases (``tests/test_device_repartition.py``,
 ``tests/test_shuffle_plan.py``) run on a one-device CPU mesh; here they
-run on the port's one-device CPU :class:`Mesh`, and a mesh of more devices
-is refused.  Layouts are compared bit for bit with the reference's after
+run on the port's one-device CPU :class:`Mesh` (meshes of several
+positions: ``tests/test_torch_mesh_store.py``).  Layouts are compared bit for bit with the reference's after
 the same calls; the advisor is held to the reference's own tests with an
 injected ``analyze``.
 """
@@ -27,6 +27,7 @@ from repro_torch.core import advisor as tadvisor  # noqa: E402
 from repro_torch.core import author_integrator, enumerate_candidates  # noqa: E402
 from repro_torch.core import sharding_advisor as tsa  # noqa: E402
 from repro_torch.core.sharding_bridge import (Mesh, NamedSharding, P,  # noqa: E402
+                                              ShardedColumn,
                                               device_put_dataset,
                                               sharding_for, sharding_of,
                                               specs_match,
@@ -110,10 +111,11 @@ def test_device_put_dataset_places_worker_axis():
         "submissions", tables["submissions"], cand)
     placed = device_put_dataset(CPU_MESH, ds)
     for k in ("score", "author", "ups"):
-        assert isinstance(placed.columns[k], torch.Tensor)
+        assert isinstance(placed.columns[k], ShardedColumn)
         assert sharding_of(placed, k) == sharding_for(CPU_MESH,
                                                       ds.partitioner)
-        assert torch.equal(placed.columns[k], ds.columns[k])
+        assert torch.equal(placed.columns[k].to_device("cpu"),
+                           ds.columns[k])
     assert placed.columns["author"].dtype == torch.int64
     assert sharding_of(ds, "score") is None       # the input is untouched
     host = PartitionStore(8, backend="host").write(
@@ -127,12 +129,25 @@ def test_device_put_dataset_places_worker_axis():
         device_put_dataset(TwoWideMesh(), bad)
 
 
-def test_a_mesh_of_two_devices_is_refused():
+def test_a_mesh_of_two_devices_places_two_blocks():
+    """A mesh of two positions holds two blocks of two workers each, bit
+    for bit the host layout's rows; m = 3 does not divide over it."""
     ds = PartitionStore(4, backend="host").write("s", _reddit()["authors"])
     two = Mesh(["cpu", "cpu"], ("data",))
     assert sharding_for(two, None).spec == P("data", None)
-    with pytest.raises(ValueError, match="torch.distributed"):
-        device_put_dataset(two, ds)
+    placed = device_put_dataset(two, ds)
+    for k, v in ds.columns.items():
+        col = placed.columns[k]
+        assert sharding_of(placed, k) == sharding_for(two, None)
+        shards = list(col.shards())
+        assert [(i, s) for i, _, s, _ in shards] == [
+            ((0,), slice(0, 2)), ((1,), slice(2, 4))]
+        for _, dev, sl, t in shards:
+            assert dev == torch.device("cpu")
+            np.testing.assert_array_equal(t.numpy(), v[sl])
+    bad = PartitionStore(3, backend="host").write("s", _reddit()["authors"])
+    with pytest.raises(ValueError, match="not divisible"):
+        device_put_dataset(two, bad)
 
 
 def test_bucketed_layout_is_placed_unsharded():
