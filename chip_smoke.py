@@ -106,7 +106,7 @@ Phases (any failure exits non-zero before the result line):
    steps on one batch (the loss must fall; step seconds, tokens/s, peak
    memory, and the share of a step the kernels' backward takes, from
    torch.profiler), an int8-compressed step's wire bytes, and
-   ``train_with_restarts`` (a failure at step 6 after a checkpoint at 4)
+   ``train_with_restarts`` (a failure at step 3 after a checkpoint at 2)
    against an uninterrupted run; (c) internlm2-1.8b, batch 4 × 2048, the
    gradient check (``wq``/``wk``/``wv`` only through ``flash_attention``)
    and 4 steps.  Launches and backward recomputes per step must equal a
@@ -193,7 +193,33 @@ Phases (any failure exits non-zero before the result line):
    scatter) from a second, direct call, and the bytes that crossed shards
    from the histograms.  Then q04-like over SF-1 orders and lineitem, with
    lineitem placed on (a)'s mesh by ``apply_decision(mesh=)``, equal to
-   the host backend's.
+   the host backend's;
+17. training the seven configs one card holds at full width, depth cut
+   (``P17_LM``: whisper-small at full depth, recurrentgemma-9b 12 layers,
+   gemma-7b 8, gemma2-27b 4, qwen1.5-110b 2, chameleon-34b 4,
+   deepseek-v2-236b 2): (a) for each, one float32 ``value_and_grad`` at
+   one pattern period of depth (B=1, S=128) through the float32 flash
+   kernel and the twin's VJP, held to the CPU port's on the same weights
+   and batch (loss within 1e-4 relative, every gradient leaf within 1e-3
+   of its norm; ``wq`` and MLA's ``wq_b``/``wkv_b`` nonzero); (b) 4
+   donated bf16 train steps at ``P17_LM``'s shape on one repeated batch,
+   the bytes reckoned from the parameter shapes and printed before the
+   call: a finite loss at every step, lower at the last, step seconds
+   after a warm-up, tokens/s, peak memory, ``KernelAttention.backward``'s
+   share of a traced step and MoE's ``dropped_frac``; then ``train`` (``TrainRun``) from a fresh
+   state for 2 steps over ``TokenSource``'s batches, its final state
+   checkpointed in the reference's stacked layout (under ``build/``,
+   removed) where the checkpoint (weights and moments, and
+   ``stack_state``'s copy of the stacked layers on the card) reckons
+   above the step (deepseek-v2): finite losses, ``train``'s step seconds,
+   the checkpoint's bytes as reckoned and its seconds, peak memory; the
+   last config's ``train`` and (c) whisper-small's ``train_with_restarts``
+   from a step-2 checkpoint (the reference's stacked layout, under
+   ``build/``, removed), equal bit for bit to an uninterrupted run, run
+   while (d) ``examples/torch/*.py`` run on the card, each in a process
+   of its own, all started together: each must exit 0.  Flash launches
+   and recomputes of (a) and per step of (b) must equal a CPU dry run's
+   (``P17_LAUNCHES``).
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -211,7 +237,8 @@ recurrentgemma-9b prefill, 36 per whisper-small prefill) and each part of
 phase 15 that runs the card (flash attention: 24 per prefill of (a), 48
 per train step of (b), 24 in (d)'s prefill), and each repartition of
 phase 16 (the hash-partition kernels, equal to the counts a CPU dry run
-predicts).
+predicts), and each call of phase 17 (a) and (b) (flash attention, equal
+to a CPU dry run's ``P17_LAUNCHES``).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -2562,8 +2589,9 @@ P12_LM = (("mamba2-370m", 8, 2048, 10), ("internlm2-1.8b", 4, 2048, 4))
 #: backward) and its backward once
 P12_LAUNCHES = {"mamba2-370m": {"launches": 96, "recomputes": 48},
                 "internlm2-1.8b": {"launches": 48, "recomputes": 24}}
-#: the restart check: steps, checkpoint every, injected failure at
-P12_RESTART = (8, 4, 6)
+#: the restart check: steps, checkpoint every, injected failure at (one
+#: lost step replayed, to keep the script inside its time limit)
+P12_RESTART = (4, 2, 3)
 #: the largest difference between the restarted run and an uninterrupted
 #: one, over the losses after the restore and every leaf of the final
 #: state (parameters, moments, step): the restored state is bit-exact and
@@ -2665,7 +2693,6 @@ def p12_lm(env, cfg, arch, batch, seq, n_steps, work, restart=True,
     from repro_torch import tree
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.launch import steps as S
-    from repro_torch.launch import train as TR
 
     dev = env.device
     kernel = "ssd_scan" if cfg.ssd is not None else "flash_attention"
@@ -2777,52 +2804,66 @@ def p12_lm(env, cfg, arch, batch, seq, n_steps, work, restart=True,
         out["wire_bytes"] = formula
 
     if restart:
-        total, every, fail_at = P12_RESTART
-        ck = Path(work) / f"ckpt-{arch}"
-        run = dict(cfg=cfg, total_steps=total, global_batch=batch,
-                   seq_len=seq, ckpt_every=every, device=dev, log_every=100,
-                   peak_lr=P12_LR)
-        t0 = time.perf_counter()
-        got = TR.train_with_restarts(TR.TrainRun(**run, ckpt_dir=str(ck),
-                                                 fail_at_step=fail_at))
-        restart_s = time.perf_counter() - t0
-        got_state = [t.cpu() for t in tree.leaves(got.pop("state"))]
-        clean = TR.train(TR.TrainRun(**run))
-        clean_state = [t.cpu() for t in tree.leaves(clean.pop("state"))]
-        expect = [(s, int(src.batch_at(s, 0)["tokens"].sum()))
-                  for s in range(every, total)]
-        diff = max(abs(a - b) for a, b in zip(got["losses"],
-                                              clean["losses"][every:]))
-        state_diff = max(float((a.double() - b.double()).abs().max())
-                         for a, b in zip(got_state, clean_state))
-        print(f"phase 12: {what}: train_with_restarts {total} steps, "
-              f"checkpoint every {every}, failure injected at step "
-              f"{fail_at}: restored step {got['start_step']}, then took "
-              f"steps {[s for s, _ in got['taken']]} once each (token sums "
-              f"{[t for _, t in got['taken']]}, TokenSource.batch_at's "
-              f"{[t for _, t in expect]}); final loss "
-              f"{got['losses'][-1]:.6f} vs an uninterrupted run's "
-              f"{clean['losses'][-1]:.6f}; largest |diff| over the "
-              f"{len(got['losses'])} losses after the restore {diff:.3e}, "
-              f"over the {len(got_state)} leaves of the final state "
-              f"{state_diff:.3e} (limit {P12_RESTART_TOL}); {restart_s:.1f} "
-              f"s with the restart and checkpoints on {env.card}", flush=True)
-        if got["start_step"] != every or got["taken"] != expect:
-            raise AssertionError(f"{what}: the restart resumed at "
-                                 f"{got['start_step']} with {got['taken']}")
-        if len(got_state) != len(clean_state) or len(got["losses"]) != \
-                total - every:
-            raise AssertionError(f"{what}: the restarted run's state or "
-                                 "losses do not line up with the "
-                                 "uninterrupted run's")
-        if not max(diff, state_diff) <= P12_RESTART_TOL:
-            raise AssertionError(f"{what}: the restarted run differs from "
-                                 f"an uninterrupted one: losses by {diff}, "
-                                 f"the final state by {state_diff}")
-        del got_state, clean_state
-        out.update(restart_loss_diff=diff, restart_state_diff=state_diff,
-                   restart_s=restart_s)
+        out.update(p12_restart(env, cfg, f"phase 12: {what}", batch, seq,
+                               work, P12_RESTART))
     return out
+
+
+def p12_restart(env, cfg, label, batch, seq, work, plan):
+    """``train_with_restarts`` with a failure injected after a checkpoint
+    (``plan``: steps, checkpoint every, failure at) against an
+    uninterrupted ``train``: the restart resumes at the checkpoint, takes
+    each later batch once, and ends bit for bit where the uninterrupted run
+    ends (checkpoints under ``work`` in the reference's stacked layout).
+    Returns the largest differences and the seconds."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import train as TR
+    total, every, fail_at = plan
+    src = TokenSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch))
+    ck = Path(work) / f"ckpt-{cfg.name}"
+    run = dict(cfg=cfg, total_steps=total, global_batch=batch, seq_len=seq,
+               ckpt_every=every, device=env.device, log_every=100,
+               peak_lr=P12_LR)
+    t0 = time.perf_counter()
+    got = TR.train_with_restarts(TR.TrainRun(**run, ckpt_dir=str(ck),
+                                             fail_at_step=fail_at))
+    restart_s = time.perf_counter() - t0
+    got_state = [t.cpu() for t in tree.leaves(got.pop("state"))]
+    clean = TR.train(TR.TrainRun(**run))
+    clean_state = [t.cpu() for t in tree.leaves(clean.pop("state"))]
+    expect = [(s, int(src.batch_at(s, 0)["tokens"].sum()))
+              for s in range(every, total)]
+    diff = max(abs(a - b) for a, b in zip(got["losses"],
+                                          clean["losses"][every:]))
+    state_diff = max(float((a.double() - b.double()).abs().max())
+                     for a, b in zip(got_state, clean_state))
+    print(f"{label}: train_with_restarts {total} steps, checkpoint every "
+          f"{every}, failure injected at step {fail_at}: restored step "
+          f"{got['start_step']}, then took steps "
+          f"{[s for s, _ in got['taken']]} once each (token sums "
+          f"{[t for _, t in got['taken']]}, TokenSource.batch_at's "
+          f"{[t for _, t in expect]}); final loss {got['losses'][-1]:.6f} "
+          f"vs an uninterrupted run's {clean['losses'][-1]:.6f}; largest "
+          f"|diff| over the {len(got['losses'])} losses after the restore "
+          f"{diff:.3e}, over the {len(got_state)} leaves of the final state "
+          f"{state_diff:.3e} (limit {P12_RESTART_TOL}); {restart_s:.1f} s "
+          f"with the restart and checkpoints on {env.card}", flush=True)
+    if got["start_step"] != every or got["taken"] != expect:
+        raise AssertionError(f"{label}: the restart resumed at "
+                             f"{got['start_step']} with {got['taken']}")
+    if len(got_state) != len(clean_state) or len(got["losses"]) != \
+            total - every:
+        raise AssertionError(f"{label}: the restarted run's state or "
+                             "losses do not line up with the "
+                             "uninterrupted run's")
+    if not max(diff, state_diff) <= P12_RESTART_TOL:
+        raise AssertionError(f"{label}: the restarted run differs from "
+                             f"an uninterrupted one: losses by {diff}, "
+                             f"the final state by {state_diff}")
+    return {"restart_loss_diff": diff, "restart_state_diff": state_diff,
+            "restart_s": restart_s}
 
 
 #: one layer's kernel shapes in phase 12's models: SSD (B, T, H, P, N,
@@ -4204,6 +4245,554 @@ def p16_consumer(torch, np, lt, tcore, TableVal, tables, mesh, card,
           f"{card}", flush=True)
 
 
+# -- phase 17: training the seven configs one card holds -----------------------
+
+#: (b): (arch, decoder layers, batch, sequence); full width, bf16 as the
+#: configs say, remat on, ``accum_steps=1`` (one or two rows a batch, eight
+#: for whisper); the depth cut (an encoder cut alike) so that
+#: :func:`p17_reckon` stays under :data:`P17_BYTES_LIMIT`; whisper-small
+#: first ((c) restarts it), the last one's ``train`` beside (d)
+P17_LM = (("whisper-small", 12, 8, 224),
+          ("recurrentgemma-9b", 12, 2, 2048),
+          ("gemma-7b", 8, 2, 2048),
+          ("gemma2-27b", 4, 2, 2048),
+          ("qwen1.5-110b", 2, 1, 2048),
+          ("chameleon-34b", 4, 2, 2048),
+          ("deepseek-v2-236b", 2, 1, 2048))
+#: (b) train steps on one repeated batch, the first a warm-up
+P17_STEPS = 4
+#: (b) steps of ``train`` itself over ``TokenSource``'s batches before its
+#: checkpoint
+P17_TRAIN_STEPS = 2
+#: (a) batch and sequence of the float32 check at one pattern period
+P17_CHECK = (1, 128)
+#: (a) the card's float32 loss against the CPU port's (relative), and each
+#: gradient leaf's error norm over the CPU leaf's norm: the limit of
+#: ``tests/test_torch_cuda.py``'s train-forward case (GEMMs and reductions
+#: sum in other orders; the kernel's forward is within 3e-5 of the twin)
+P17_LOSS_TOL, P17_GRAD_TOL = 1e-4, 1e-3
+#: what a step may reckon to hold on one 80 GB card
+P17_BYTES_LIMIT = 70e9
+#: (c) whisper-small's restart: steps, checkpoint every, failure at
+P17_RESTART = (4, 2, 3)
+P17_SEED = 17
+#: flash launches and backward recomputes of one loss/backward, (a) at one
+#: pattern period and (b) at :data:`P17_LM`'s depth, predicted by a CPU dry
+#: run of the same calls at the same depths with the kernels' Functions on
+#: CPU stand-ins (``tests/test_torch_train.py``): under remat each attention
+#: (whisper: encoder, self and cross) runs forward twice and back once
+P17_LAUNCHES = {
+    "whisper-small": {"check": {"launches": 6, "recomputes": 3},
+                      "step": {"launches": 72, "recomputes": 36}},
+    "recurrentgemma-9b": {"check": {"launches": 2, "recomputes": 1},
+                          "step": {"launches": 8, "recomputes": 4}},
+    "deepseek-v2-236b": {"check": {"launches": 4, "recomputes": 2},
+                         "step": {"launches": 4, "recomputes": 2}},
+    "gemma-7b": {"check": {"launches": 2, "recomputes": 1},
+                 "step": {"launches": 16, "recomputes": 8}},
+    "gemma2-27b": {"check": {"launches": 4, "recomputes": 2},
+                   "step": {"launches": 8, "recomputes": 4}},
+    "qwen1.5-110b": {"check": {"launches": 2, "recomputes": 1},
+                     "step": {"launches": 4, "recomputes": 2}},
+    "chameleon-34b": {"check": {"launches": 2, "recomputes": 1},
+                      "step": {"launches": 8, "recomputes": 4}},
+}
+#: (d) ``examples/torch/<name>.py``, run on the card as they stand
+P17_EXAMPLES = ("quickstart", "autopilot_drift", "serve_batch", "train_lm",
+                "elastic_restart")
+P17_EXAMPLE_TIMEOUT_S = 300
+
+
+def p17_config(base, layers, dtype=None):
+    """``base`` with ``layers`` decoder layers and an encoder (whisper's:
+    as deep as its decoder) of as many, ``accum_steps=1``, in ``dtype``
+    where given."""
+    import dataclasses
+    kw = {"num_layers": layers, "accum_steps": 1}
+    if base.encoder is not None:
+        kw["encoder"] = dataclasses.replace(base.encoder, num_layers=layers)
+    if dtype is not None:
+        kw["param_dtype"] = dtype
+    return dataclasses.replace(base, **kw)
+
+
+def p17_period(cfg) -> int:
+    """Layers in one pattern period, the prefix included."""
+    return len(cfg.prefix) + len(cfg.pattern)
+
+
+def p17_reckon(torch, cfg, batch, seq, optimizer=True):
+    """The bytes one loss/backward (``optimizer``: and a donated AdamW
+    update, then a checkpoint) holds at its peak, reckoned from the
+    parameter shapes on the meta device before anything is allocated: the
+    weights and gradients of every parameter and, with the optimizer, its
+    two moments; the update's float32 temporaries (about 6 × 4 B an
+    element of the largest leaf, updated in slices of ``DONATE_CHUNK``);
+    the float32 logits and their gradient, B·S·V·8 B; the twin's float32
+    scores in ``KernelAttention.backward``, about 4 × B·H·Sq·Skv·4 B at the
+    model's largest attention (self, encoder or cross).  A checkpoint
+    holds the weights and moments (``checkpoint``, the bytes it writes)
+    and ``stack_state``'s copy of the pattern layers' and the encoder's
+    (``stacked_copy``), the gradients freed: ``total`` is the larger of
+    the two peaks."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    from repro_torch.optimizer.adamw import DONATE_CHUNK
+    params = T.init_params(cfg, torch.Generator(), "meta")
+    leaves = tree.leaves(params)
+    n = sum(t.numel() for t in leaves)
+    big = max(t.numel() for t in leaves)
+    moment = 2 if cfg.opt_state_bf16 else None
+
+    def held(ts):                           # weights and two moments
+        return sum(t.numel() * (t.element_size()
+                                + 2 * (moment or t.element_size()))
+                   for t in ts)
+
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    state, update, checkpoint, copy = 2 * weights, 0, 0, 0
+    if optimizer:
+        checkpoint = held(leaves)
+        state += checkpoint - weights
+        update = 6 * 4 * min(big, DONATE_CHUNK)
+        n_pre = len(cfg.prefix)
+        copy = held(tree.leaves(
+            params["layers"][n_pre:n_pre + cfg.pattern_groups
+                             * len(cfg.pattern)])
+            + tree.leaves(params.get("encoder", {}).get("layers", [])))
+    pairs = [seq * seq]
+    if cfg.encoder is not None:
+        F = cfg.encoder.num_frames
+        pairs += [F * F, seq * F]
+    scores = 4 * batch * cfg.num_heads * max(pairs) * 4
+    logits = batch * seq * cfg.vocab_size * 8
+    step = state + update + logits + scores
+    return {"params": n, "largest_leaf": big, "state": state,
+            "update": update, "logits": logits, "scores": scores,
+            "step": step, "checkpoint": checkpoint, "stacked_copy": copy,
+            "total": max(step, checkpoint + copy)}
+
+
+def p17_print_reckoning(label, rk):
+    gb = 1e9
+    line = (f"{label}: reckoned before the call: {rk['params']} parameters; "
+            f"weights, gradients{' and moments' if rk['update'] else ''} "
+            f"{rk['state'] / gb:.2f} GB")
+    if rk["update"]:
+        line += (f", the update's float32 temporaries "
+                 f"{rk['update'] / gb:.2f} GB (largest leaf "
+                 f"{rk['largest_leaf']})")
+    line += (f", float32 logits and their gradient {rk['logits'] / gb:.2f} "
+             f"GB, the twin's float32 scores {rk['scores'] / gb:.2f} GB: a "
+             f"step {rk['step'] / gb:.2f} GB")
+    if rk["checkpoint"]:
+        line += (f"; a checkpoint: weights and moments "
+                 f"{rk['checkpoint'] / gb:.2f} GB and stack_state's copy "
+                 f"{rk['stacked_copy'] / gb:.2f} GB")
+    print(line + f"; total {rk['total'] / gb:.2f} GB (limit "
+          f"{P17_BYTES_LIMIT / gb:.0f} GB)", flush=True)
+
+
+def p17_batch(np, torch, cfg, batch, seq, device):
+    """Seeded tokens, next-token labels and, for an encoder config, frames
+    (B, F, D) in the config's dtype."""
+    from repro_torch.models.transformer import dtype_of
+    rng = np.random.default_rng(P17_SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    out = {"tokens": torch.from_numpy(tokens).to(device),
+           "labels": torch.from_numpy(np.roll(tokens, -1, 1)).to(device)}
+    if cfg.encoder is not None:
+        frames = rng.standard_normal(
+            (batch, cfg.encoder.num_frames, cfg.d_model), dtype=np.float32)
+        out["frames"] = torch.from_numpy(frames * 0.5).to(
+            device=device, dtype=dtype_of(cfg))
+    return out
+
+
+def p17_kernel_only(grads):
+    """{name: smallest norm} of the gradients that reach the loss only
+    through the flash kernel: ``wq`` (self, cross and encoder attention)
+    and MLA's ``wq_b`` and ``wkv_b``; RG-LRU layers have none."""
+    out = {}
+    layers = list(grads["layers"]) + list(
+        grads.get("encoder", {}).get("layers", []))
+    for layer in layers:
+        for block in ("attn", "cross"):
+            for k in ("wq", "wq_b", "wkv_b"):
+                leaf = layer.get(block, {}).get(k)
+                if leaf is not None:
+                    norm = float(leaf["w"].float().norm())
+                    name = f"{block}.{k}"
+                    out[name] = min(out.get(name, norm), norm)
+    return out
+
+
+def p17_label(part, arch, cfg, batch, seq) -> str:
+    enc = (f" + {cfg.encoder.num_layers} encoder"
+           if cfg.encoder is not None else "")
+    return (f"phase 17: {part} {arch} {cfg.param_dtype}, {cfg.num_layers}"
+            f"{enc} layers, B={batch} S={seq}")
+
+
+def p17_check(env, base, arch):
+    """(a) one float32 ``value_and_grad`` at full width and one pattern
+    period of depth on ``env.device`` (the float32 kernel, the twin's VJP
+    backward), then on the CPU port from the same weights and batch (the
+    plain twins): the loss within P17_LOSS_TOL, every leaf within
+    P17_GRAD_TOL, the kernel-only leaves nonzero, the launches
+    P17_LAUNCHES[arch]["check"]."""
+    torch, np = env.torch, env.np
+    from repro_torch import tree
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    cfg = p17_config(base, p17_period(base), "float32")
+    B, Sq = P17_CHECK
+    what = p17_label("(a)", arch, cfg, B, Sq)
+    rk = p17_reckon(torch, cfg, B, Sq, optimizer=False)
+    p17_print_reckoning(what, rk)
+    if rk["total"] > P17_BYTES_LIMIT:
+        raise AssertionError(f"{what}: reckoned {rk['total']} B")
+    dev = env.device
+    walls = {}
+    t0 = time.perf_counter()
+    params = T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(P17_SEED), dev)
+    batch = p17_batch(np, torch, cfg, B, Sq, dev)
+    env.sync()
+    walls["init"] = time.perf_counter() - t0
+    env.reset()
+    t0 = time.perf_counter()
+    loss, _, grads = S.value_and_grad(cfg, params, batch)
+    env.sync()
+    walls["device"] = time.perf_counter() - t0
+    counts = env.read("flash_attention")
+    t0 = time.perf_counter()
+    host = tree.map(lambda t: t.cpu(), params)
+    del params
+    walls["to_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    closs, _, cgrads = S.value_and_grad(
+        cfg, host, {k: v.cpu() for k, v in batch.items()})
+    walls["cpu"] = time.perf_counter() - t0
+    del host
+    t0 = time.perf_counter()
+    loss_rel = abs(float(loss) - float(closs)) / max(abs(float(closs)),
+                                                     1e-30)
+    worst, worst_at, n_leaves = 0.0, None, 0
+    for (path, g), c in zip(tree.flatten_with_paths(grads),
+                            tree.leaves(cgrads)):
+        c = c.to(g.device)                  # compared where g lies
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: gradient {tree.path_str(path)} "
+                                 "not finite")
+        rel = float((g - c).norm() / c.norm().clamp_min(1e-30))
+        if rel > worst or worst_at is None:
+            worst, worst_at = rel, tree.path_str(path)
+        n_leaves += 1
+    only = p17_kernel_only(grads)
+    del grads, cgrads
+    walls["compare"] = time.perf_counter() - t0
+    print(f"{what}: loss {float(loss):.6f} on {env.card} vs {float(closs):.6f}"
+          f" on the CPU (rel {loss_rel:.3e}, limit {P17_LOSS_TOL}); "
+          f"{n_leaves} gradient leaves, largest error norm / norm {worst:.3e}"
+          f" at {worst_at} (limit {P17_GRAD_TOL}); reaching the loss only "
+          f"through flash_attention (smallest norm): "
+          + ", ".join(f"{k} {v:.4e}" for k, v in only.items())
+          + f"; flash launches {counts['launches']}, backward recomputes "
+          f"{counts['recomputes']}; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()), flush=True)
+    if not loss_rel <= P17_LOSS_TOL or not worst <= P17_GRAD_TOL:
+        raise AssertionError(f"{what}: the card's loss or gradients differ "
+                             f"from the CPU port's: loss rel {loss_rel}, "
+                             f"{worst_at} {worst}")
+    if not only or min(only.values()) <= 0:
+        raise AssertionError(f"{what}: a gradient reaching the loss only "
+                             f"through flash_attention is zero: {only}")
+    if counts != P17_LAUNCHES[arch]["check"]:
+        raise AssertionError(f"{what}: counted {counts}, the dry run "
+                             f"predicts {P17_LAUNCHES[arch]['check']}")
+    return {"loss_rel": loss_rel, "grad_rel": worst, "counts": counts,
+            "kernel_only": only, "reckoned": rk, "walls": walls}
+
+
+def p17_steps(env, cfg, arch, batch, seq, n_steps=P17_STEPS):
+    """(b) ``n_steps`` donated bf16 train steps on one repeated batch: the
+    reckoning printed first, the loss finite at every step and lower at
+    the last than at the first, launches per step P17_LAUNCHES[arch]
+    ["step"]; step seconds (median after a warm-up), tokens/s, peak memory
+    against the reckoned step, on the card the share of a step under
+    ``KernelAttentionBackward``, and MoE's ``dropped_frac`` from a no-grad
+    forward over the batch."""
+    torch, np = env.torch, env.np
+    from repro_torch import tree
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    dev = env.device
+    what = p17_label("(b)", arch, cfg, batch, seq)
+    rk = p17_reckon(torch, cfg, batch, seq)
+    p17_print_reckoning(what, rk)
+    if rk["total"] > P17_BYTES_LIMIT:
+        raise AssertionError(f"{what}: reckoned {rk['total']} B")
+    opt = S.make_optimizer(cfg, peak_lr=P12_LR, total_steps=n_steps)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    state = S.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(P17_SEED), opt,
+        device=dev)
+    held = sum(t.numel() for t in tree.leaves(state["params"]))
+    if held != rk["params"]:
+        raise AssertionError(f"{what}: {held} parameters, reckoned "
+                             f"{rk['params']}")
+    b0 = p17_batch(np, torch, cfg, batch, seq, dev)
+    step = S.make_train_step(cfg, opt, donate=True)
+    env.sync()
+    walls = {"init": time.perf_counter() - t_init}
+    losses, times = [], []
+    env.reset()
+    for _ in range(n_steps):
+        env.sync()
+        t0 = time.perf_counter()
+        state, met = step(state, b0)
+        losses.append(float(met["loss"]))
+        env.sync()
+        times.append(time.perf_counter() - t0)
+    counts = env.read("flash_attention")
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    walls["steps"] = sum(times)
+    out = {"losses": losses, "step_s": step_s, "first_step_s": times[0],
+           "tokens_per_s": batch * seq / step_s, "peak_bytes": peak,
+           "per_step": per_step, "reckoned": rk, "walls": walls}
+    print(f"{what}: {n_steps} steps on one batch, loss "
+          f"{[round(v, 4) for v in losses]}; step_s after a warm-up step "
+          f"{step_s:.4f} (first {times[0]:.4f}, all "
+          f"{[round(t, 4) for t in times]}); tokens/s "
+          f"{out['tokens_per_s']:.1f}; max_memory_allocated {peak} B "
+          f"(reckoned a step {rk['step']} B); flash per step {per_step} on "
+          f"{env.card}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss is not finite or did not "
+                             f"fall: {losses}")
+    if per_step != P17_LAUNCHES[arch]["step"]:
+        raise AssertionError(f"{what}: per step {per_step}, the dry run "
+                             f"predicts {P17_LAUNCHES[arch]['step']}")
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        share = p12_recompute_share(torch, lambda: step(state, b0))
+        walls["profiled_step"] = time.perf_counter() - t0
+        if share is None:
+            print(f"{what}: KernelAttention.backward's share not measured "
+                  "(no Kernel*Backward node in the trace)", flush=True)
+        else:
+            out["recompute_ms"], out["step_device_ms"] = share
+            print(f"{what}: torch.profiler, one step: device {share[1]:.2f} "
+                  f"ms, of which KernelAttention.backward (the twin's "
+                  f"float32 recompute and VJP) {share[0]:.2f} ms = "
+                  f"{100 * share[0] / share[1]:.1f}% on {env.card}",
+                  flush=True)
+    if cfg.moe is not None:
+        with torch.inference_mode():
+            _, _, aux = T.prefill(cfg, state["params"], b0["tokens"],
+                                  frames=b0.get("frames"), with_aux=True)
+        out["dropped_frac"] = [float(d) for d in aux["dropped_frac"]]
+        print(f"{what}: MoE dropped_frac per MoE layer at capacity factor "
+              f"{cfg.moe.capacity_factor} (a no-grad forward over the batch)"
+              f": {out['dropped_frac']}", flush=True)
+    del state
+    print(f"{what}: seconds " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in walls.items()),
+          flush=True)
+    return out
+
+
+def p17_train(env, cfg, arch, batch, seq, work, checkpoint,
+              n_steps=P17_TRAIN_STEPS):
+    """(b) the trainer's entry point, ``train(TrainRun(...))``, from a fresh
+    state: ``n_steps`` donated steps over ``TokenSource``'s batches and,
+    with ``checkpoint``, its final state checkpointed under ``work`` in the
+    reference's stacked layout (``stack_state`` on the card; removed
+    after).  Every loss finite (random tokens teach nothing to fall to),
+    launches per step P17_LAUNCHES[arch]["step"], the checkpoint's bytes
+    on disk the reckoned weights and moments; ``train``'s step seconds,
+    peak memory against the reckoned total and the seconds outside the
+    steps (init and any checkpoint)."""
+    import shutil
+
+    torch = env.torch
+    from repro_torch.launch import train as TR
+    dev = env.device
+    what = p17_label("(b) train", arch, cfg, batch, seq)
+    rk = p17_reckon(torch, cfg, batch, seq)
+    ck = Path(work) / f"ckpt-{arch}"
+    run = TR.TrainRun(cfg=cfg, total_steps=n_steps, global_batch=batch,
+                      seq_len=seq, ckpt_dir=str(ck) if checkpoint else None,
+                      peak_lr=P12_LR, seed=P17_SEED, log_every=n_steps,
+                      device=dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    env.reset()
+    t0 = time.perf_counter()
+    got = TR.train(run)
+    env.sync()
+    wall = time.perf_counter() - t0
+    counts = env.read("flash_attention")
+    del got["state"]
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    try:
+        on_disk = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    losses, times = got["losses"], got["step_s"]
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    out = {"losses": losses, "step_s": times, "peak_bytes": peak,
+           "checkpoint_bytes": on_disk, "per_step": per_step,
+           "outside_steps_s": wall - sum(times), "wall_s": wall}
+    saved = (f"the checkpoint {on_disk} B on disk (weights and moments "
+             f"reckoned {rk['checkpoint']} B)" if checkpoint else
+             "no checkpoint (the step's reckoned peak is above a "
+             "checkpoint's)")
+    print(f"{what}: train {n_steps} steps over TokenSource's batches, loss "
+          f"{[round(v, 4) for v in losses]}, step seconds "
+          f"{[round(t, 4) for t in times]}; init and any checkpoint "
+          f"{out['outside_steps_s']:.2f} s; {saved}; max_memory_allocated "
+          f"{peak} B (reckoned {rk['total']} B); flash per step {per_step} "
+          f"on {env.card}", flush=True)
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+    if per_step != P17_LAUNCHES[arch]["step"]:
+        raise AssertionError(f"{what}: per step {per_step}, the dry run "
+                             f"predicts {P17_LAUNCHES[arch]['step']}")
+    if checkpoint and not \
+            rk["checkpoint"] < on_disk < rk["checkpoint"] + (1 << 20):
+        raise AssertionError(f"{what}: the checkpoint holds {on_disk} B, "
+                             f"reckoned {rk['checkpoint']} B and headers")
+    return out
+
+
+def p17_checkpoints(rk) -> bool:
+    """Whether (b)'s ``train`` writes its checkpoint: where the checkpoint
+    (the weights and moments with ``stack_state``'s copy) reckons above
+    the step, it sets the run's peak; elsewhere the steps do, and the
+    checkpoint (at ~1.3 GB/s to disk) is left to (c)."""
+    return rk["checkpoint"] + rk["stacked_copy"] > rk["step"]
+
+
+def p17_examples(card, meanwhile):
+    """(d) each ``examples/torch/*.py`` on the card in a process of its own,
+    all started together, ``meanwhile()`` run while they run (the walls
+    overlap): each must exit 0 within P17_EXAMPLE_TIMEOUT_S.  {name: wall
+    seconds}."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+
+    def run(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=P17_EXAMPLE_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(P17_EXAMPLES)) as pool:
+        runs = pool.map(run, P17_EXAMPLES)      # all submitted at once
+        meanwhile()
+        done = list(zip(P17_EXAMPLES, runs))
+    walls, failed = {}, []
+    for name, (proc, wall) in done:
+        walls[name] = wall
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"phase 17: (d) examples/torch/{name}.py exited "
+              f"{proc.returncode} after {wall:.1f} s on {card}; its last "
+              f"line: {last}", flush=True)
+        if proc.returncode != 0:
+            failed.append(name)
+            print(proc.stderr[-4000:], flush=True)
+    if failed:
+        raise AssertionError(f"phase 17 (d): examples failed: {failed}")
+    return walls
+
+
+def run_train17(torch, np, card):
+    """Phase 17: for each config of :data:`P17_LM`, (a) the float32 check,
+    (b) the bf16 steps and (but for the last config) ``train``; then the
+    last config's ``train`` and (c) whisper-small's restart beside (d) the
+    examples.  Returns the flash launches of (a) and (b)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = p12_env(torch, np, "cuda", card)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    reckoned = {a: p17_reckon(torch, p17_config(get_config(a), n), b, s)
+                for a, n, b, s in P17_LM}
+    # (b) keeps one checkpoint at a time, (c) whisper-small's three
+    need = max([rk["checkpoint"] for rk in reckoned.values()
+                if p17_checkpoints(rk)]
+               + [3 * reckoned[P17_LM[0][0]]["checkpoint"]]) \
+        + P12_SLACK_BYTES
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise AssertionError(f"phase 17 needs {need} B of free disk under "
+                             f"{build}, and {free} B are free")
+    tmp = Path(tempfile.mkdtemp(prefix="phase17-", dir=build))
+    try:
+        launched = 0
+        for arch, layers, batch, seq in P17_LM:
+            t0 = time.perf_counter()
+            base = get_config(arch)
+            launched += p17_check(env, base, arch)["counts"]["launches"]
+            torch.cuda.empty_cache()
+            cfg = p17_config(base, layers)
+            out = p17_steps(env, cfg, arch, batch, seq)
+            launched += int(out["per_step"]["launches"] * P17_STEPS)
+            torch.cuda.empty_cache()
+            if arch != P17_LM[-1][0]:   # the last one's train beside (d)
+                out = p17_train(env, cfg, arch, batch, seq, tmp,
+                                p17_checkpoints(reckoned[arch]))
+                launched += int(out["per_step"]["launches"]
+                                * P17_TRAIN_STEPS)
+                torch.cuda.empty_cache()
+            print(f"phase 17: {arch} done in {time.perf_counter() - t0:.1f} "
+                  "s", flush=True)
+
+        def train_last_then_restart():
+            # the last config's train (deepseek-v2's checkpoint, bound by
+            # the disk), then whisper-small's restart, beside (d)
+            nonlocal launched
+            arch, layers, batch, seq = P17_LM[-1]
+            t0 = time.perf_counter()
+            out = p17_train(env, p17_config(get_config(arch), layers), arch,
+                            batch, seq, tmp, p17_checkpoints(reckoned[arch]))
+            launched += int(out["per_step"]["launches"] * P17_TRAIN_STEPS)
+            torch.cuda.empty_cache()
+            print(f"phase 17: (b) {arch}'s train done in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            arch, layers, batch, seq = P17_LM[0]
+            cfg = p17_config(get_config(arch), layers)
+            t0 = time.perf_counter()
+            p12_restart(env, cfg, p17_label("(c)", arch, cfg, batch, seq),
+                        batch, seq, tmp, P17_RESTART)
+            print(f"phase 17: (c) done in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+        t0 = time.perf_counter()
+        p17_examples(card, train_last_then_restart)
+        torch.cuda.empty_cache()
+        print(f"phase 17: (b)'s last train, (c) and (d) done in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4414,6 +5003,14 @@ def main() -> int:
             launches[k] += v
     print(f"phase 16: done in {time.perf_counter() - t16:.1f} s on {card}; "
           f"launches {phase16['launches']}", flush=True)
+
+    t17 = time.perf_counter()
+    phase17 = run_train17(torch, np, card)
+    if phase17 == 0:
+        return fail("phase 17 never launched flash_attention")
+    launches["flash_attention"] += phase17
+    print(f"phase 17: done in {time.perf_counter() - t17:.1f} s on {card}; "
+          f"flash launches over (a) and (b) {phase17}", flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

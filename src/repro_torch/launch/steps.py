@@ -3,7 +3,10 @@
 
 ``train_step(state, batch) -> (state, metrics)`` is functional, as the
 reference's: the state's parameter, optimizer and error-feedback trees
-are replaced, never updated in place.  Gradients come from
+are replaced, never updated in place — unless it is made with
+``donate=True``, the counterpart of the reference trainer's
+``donate_argnums``, which writes the new parameters and moments into the
+given state's tensors.  Gradients come from
 ``torch.autograd.grad`` of :func:`..models.transformer.loss_fn`; on the
 card the mixers run the hand-written kernels forward and the plain
 twins' VJPs backward (``kernels/*/ops.py``).  ``cfg.accum_steps > 1``
@@ -57,14 +60,18 @@ def value_and_grad(cfg: ArchConfig, params: Any, batch: Dict[str, Any]):
 
 def make_train_step(cfg: ArchConfig, optimizer: AdamW,
                     compression: Optional[str] = None,
-                    topk_frac: float = 0.05) -> Callable:
+                    topk_frac: float = 0.05,
+                    donate: bool = False) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``compression`` ∈ {None, "int8", "topk"}: compress the gradients with
     error feedback before the update (the state carries the residual),
     one scale or threshold per stacked leaf of the reference's layout
     (``optimizer/compression.py``); the wire-byte count is returned in
-    metrics."""
+    metrics.  ``donate=True`` (the reference trainer's ``donate_argnums``)
+    writes the new parameters and moments into the given state's tensors
+    (``AdamW.update(donate=True)``): the same bits, one copy of the state
+    in memory; the caller's ``state`` then holds the new values."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -97,7 +104,8 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
                 raise ValueError(compression)
             new_state["ef"] = ef
             met = dict(met, wire_bytes=wire)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params)
+        new_params, new_opt = optimizer.update(grads, state["opt"], params,
+                                               donate=donate)
         metrics = {"loss": loss, "grad_norm": gnorm, **met}
         new_state.update({"params": new_params, "opt": new_opt})
         return new_state, metrics

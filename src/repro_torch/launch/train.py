@@ -54,15 +54,17 @@ class TrainRun:
 
 
 def train(run: TrainRun) -> Dict[str, Any]:
-    """Returns ``{"state", "losses", "final_step", "start_step",
-    "taken"}``: ``taken`` lists ``(step, sum of the batch's tokens)`` for
-    each step this call ran, in order (exactly-once after a restore shows
-    there)."""
+    """Returns ``{"state", "losses", "step_s", "final_step", "start_step",
+    "taken"}``: ``step_s`` holds each step's seconds (fetching its batch
+    to reading its loss); ``taken`` lists ``(step, sum of the batch's
+    tokens)`` for each step this call ran, in order (exactly-once after a
+    restore shows there)."""
     cfg = run.cfg
     device = resolve_device(run.device)
     opt = steps_lib.make_optimizer(cfg, peak_lr=run.peak_lr,
                                    total_steps=run.total_steps)
-    train_step = steps_lib.make_train_step(cfg, opt)
+    # the reference jits the step with donate_argnums=(0,)
+    train_step = steps_lib.make_train_step(cfg, opt, donate=True)
     source = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=run.seq_len,
                                     global_batch=run.global_batch,
@@ -81,6 +83,7 @@ def train(run: TrainRun) -> Dict[str, Any]:
         print(f"[train] restored step {start}")
 
     losses: List[float] = []
+    step_s: List[float] = []
     taken: List[tuple] = []
     t0 = time.time()
     step = start
@@ -88,6 +91,7 @@ def train(run: TrainRun) -> Dict[str, Any]:
         if run.fail_at_step is not None and step == run.fail_at_step:
             run.fail_at_step = None            # fail once
             raise WorkerFailure(f"injected failure at step {step}")
+        ts = time.perf_counter()
         batch_np = straggler.fetch_shard(
             lambda s, h: source.batch_at(s, h), step, host=0, backup_host=0)
         taken.append((step, int(batch_np["tokens"].sum())))
@@ -101,6 +105,7 @@ def train(run: TrainRun) -> Dict[str, Any]:
         coord.heartbeat(0, step)
         loss = float(metrics["loss"])           # waits for the step
         losses.append(loss)
+        step_s.append(time.perf_counter() - ts)
         if step % run.log_every == 0:
             rate = (step - start + 1) / (time.time() - t0)
             print(f"[train] step {step:5d} loss {loss:.4f} "
@@ -113,8 +118,8 @@ def train(run: TrainRun) -> Dict[str, Any]:
     if run.ckpt_dir:
         save_checkpoint(run.ckpt_dir, step, stack_state(cfg, state),
                         extra={"data_step": step})
-    return {"state": state, "losses": losses, "final_step": step,
-            "start_step": start, "taken": taken}
+    return {"state": state, "losses": losses, "step_s": step_s,
+            "final_step": step, "start_step": start, "taken": taken}
 
 
 def train_with_restarts(run: TrainRun, max_attempts: int = 4):

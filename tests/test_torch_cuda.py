@@ -1200,3 +1200,54 @@ def test_cuda_flash_decode_matches_sdpa(cuda, dtype):
         tol = 1e-5 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+# -- training the configs of chip phase 17 --------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "gemma2-27b"])
+def test_cuda_train_step_matches_the_cpu(cuda, arch):
+    """One training step of reduced deepseek-v2 (MLA through the padded
+    flash route, MoE dispatch under autograd) and reduced gemma2-27b
+    (attention and logit softcaps, window 8 under 48 tokens, local and
+    global layers) on the card against the same weights on the CPU: the
+    loss within 1e-4, every gradient leaf within 1e-3 of the CPU leaf's
+    norm, the leaves reached only through the kernel nonzero, two flash
+    launches and one recompute per attention layer under remat, and the
+    donated step's parameters within 1e-3 of the CPU step's."""
+    import dataclasses
+    cfg = reduced(get_config(arch))
+    if cfg.mla is None:
+        cfg = dataclasses.replace(cfg, head_dim=32)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 48))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)),
+             "labels": torch.from_numpy(np.roll(tokens, -1, 1))}
+    closs, _, want = TS.value_and_grad(cfg, params, batch)
+    fa.reset_launches()
+    dparams = _to_device(params, cuda)
+    dbatch = {k: v.to(cuda) for k, v in batch.items()}
+    loss, _, got = TS.value_and_grad(cfg, dparams, dbatch)
+    assert abs(float(loss) - float(closs)) <= 1e-4 * abs(float(closs))
+    keys = ("wq_b", "wkv_b") if cfg.mla else ("wq",)
+    for layer in got["layers"]:
+        for k in keys:
+            assert bool(layer["attn"][k]["w"].abs().sum() > 0), k
+    for (p, a), b in zip(tree.flatten_with_paths(got), tree.leaves(want)):
+        a = a.cpu()
+        assert bool(torch.isfinite(a).all()), p
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        assert rel <= 1e-3, (p, rel)
+    assert (fa.LAUNCHES["flash_attention"],
+            fa.RECOMPUTES["flash_attention"]) == \
+        (2 * cfg.num_layers, cfg.num_layers)
+    opt = TS.make_optimizer(cfg, peak_lr=3e-4, total_steps=4)
+    cstate, _ = TS.make_train_step(cfg, opt)(
+        {"params": params, "opt": opt.init(params)}, batch)
+    dstate, met = TS.make_train_step(cfg, opt, donate=True)(
+        {"params": dparams, "opt": opt.init(dparams)}, dbatch)
+    assert bool(torch.isfinite(met["loss"]))
+    for a, b in zip(tree.leaves(dstate["params"]),
+                    tree.leaves(cstate["params"])):
+        rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        assert rel <= 1e-3, rel

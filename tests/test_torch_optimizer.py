@@ -121,6 +121,40 @@ def test_adamw_converges_and_clips_as_the_reference():
     np.testing.assert_array_equal(sgd["a"].numpy(), np.arange(6.0) / 2)
 
 
+@pytest.mark.parametrize("dtype,state_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.bfloat16)])
+def test_donated_update_gives_the_functional_bits(monkeypatch, dtype,
+                                                  state_dtype):
+    """``update(donate=True)`` writes into the given tensors, slice by slice
+    (a slice of 7 elements here, so leaves end mid-slice), and gives the
+    functional update's bits; the functional one leaves its inputs as they
+    were."""
+    monkeypatch.setattr(TA, "DONATE_CHUNK", 7)
+    gen = torch.Generator().manual_seed(5)
+    opt = TA.AdamW(lr=TS.warmup_cosine(0.05, 2, 10), weight_decay=0.1,
+                   grad_clip_norm=0.5, state_dtype=state_dtype)
+    p = {"w": torch.randn(5, 6, generator=gen).to(dtype),
+         "b": [torch.randn(3, generator=gen).to(dtype)]}
+    fp, fs = p, opt.init(p)
+    dp, ds = tree.map(torch.clone, p), opt.init(p)
+    for _ in range(3):
+        g = tree.map(lambda t: torch.randn(t.shape, generator=gen).to(dtype),
+                     p)
+        before = [t.clone() for t in tree.leaves((fp, fs.m, fs.v))]
+        fp, fs = opt.update(g, fs, fp)
+        held = tree.leaves((dp, ds.m, ds.v))
+        dp, ds = opt.update(g, ds, dp, donate=True)
+        assert all(a is b for a, b in zip(tree.leaves((dp, ds.m, ds.v)),
+                                          held))
+        assert not all(torch.equal(a, b) for a, b in zip(
+            before, tree.leaves((fp, fs.m, fs.v))))
+        for a, b in zip(tree.leaves((dp, ds.m, ds.v)),
+                        tree.leaves((fp, fs.m, fs.v))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert int(ds.step) == int(fs.step)
+
+
 def test_warmup_cosine_equals_reference():
     for args in ((1e-3, 100, 1000), (3e-4, 5, 40, 0.2), (1e-2, 0, 10)):
         jf, tf = JS.warmup_cosine(*args), TS.warmup_cosine(*args)

@@ -109,14 +109,25 @@ def test_loss_and_every_gradient_leaf_match_reference(model):
     assert all(bool(g.abs().sum() > 0) for g in tree.leaves(grads))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
+                                  "gemma-7b", "gemma2-27b", "qwen1.5-110b",
+                                  "chameleon-34b"])
 def test_rglru_and_encoder_loss_and_gradients_match_reference(arch):
     """recurrentgemma-9b (the RG-LRU scan's gradient from autograd, ring
-    caches play no part in training) and whisper-small (the encoder, its
-    cross-attention and learned positions, with seeded frames): the loss
-    and every gradient leaf against ``jax.grad`` of the reference's
-    ``loss_fn``, with remat on as configured."""
+    caches play no part in training), whisper-small (the encoder, its
+    cross-attention and learned positions, with seeded frames) and the
+    dense variants — gemma-7b (MHA at head_dim 16 here, GeGLU, scaled
+    embeddings), gemma2-27b (a local and a global layer in each period
+    with window 8 under 32 tokens, the attention and final-logit
+    softcaps, post-norms), qwen1.5-110b (GQA with qkv bias) and
+    chameleon-34b (qk-norm): the loss and every gradient leaf against
+    ``jax.grad`` of the reference's ``loss_fn``, with remat on as
+    configured."""
     cfg = reduced(get_config(arch))
+    if arch == "gemma2-27b":
+        kinds = {s.attn_kind for s in cfg.all_specs}
+        assert kinds == {"local", "global"} and cfg.attn_softcap > 0 \
+            and cfg.logit_softcap > 0 and cfg.sliding_window < 32
     params = JT.init_params(cfg, jax.random.PRNGKey(3))
     batch = _batch(cfg, seed=3)
     if cfg.encoder is not None:
@@ -201,6 +212,31 @@ def test_train_steps_match_reference(model, accum):
     _compare_trees(cfg, jstate["params"], tstate["params"], 2e-6, 1e-4,
                    "params")
     assert int(tstate["opt"].step) == int(jstate["opt"].step) == 2
+
+
+def test_donated_train_steps_give_the_same_bits(model):
+    """``make_train_step(donate=True)`` (the trainer's, as the reference
+    donates its state) writes the new state into the old one's tensors and
+    gives the bits of the functional step, over two steps."""
+    cfg, params = model
+    opt = TS.make_optimizer(cfg, peak_lr=3e-4, total_steps=20)
+    fstate = _port_state(cfg, {"params": params})
+    fstate = {"params": fstate["params"], "opt": opt.init(fstate["params"])}
+    dstate = {"params": tree.map(torch.clone, fstate["params"]),
+              "opt": opt.init(fstate["params"])}
+    held = tree.leaves(dstate)
+    fstep = TS.make_train_step(cfg, opt)
+    dstep = TS.make_train_step(cfg, opt, donate=True)
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, seed=i).items()}
+        fstate, fm = fstep(fstate, batch)
+        dstate, dm = dstep(dstate, batch)
+        assert float(fm["loss"]) == float(dm["loss"])
+    for path, a, b, h in zip(tree.flatten_with_paths(dstate),
+                             tree.leaves(dstate), tree.leaves(fstate), held):
+        assert torch.equal(a, b), path[0]
+        if a.dim() > 0:
+            assert a is h, path[0]
 
 
 @pytest.mark.parametrize("scheme", ["int8", "topk"])
@@ -514,9 +550,9 @@ def test_phase12_dry_run_predicts_its_launches(tmp_path, stand_ins, arch):
 def test_phase12_restart_check_on_the_cpu(tmp_path, stand_ins, monkeypatch):
     """Phase 12's restart check (``p12_lm`` with ``restart=True``) at
     reduced depth, the Functions on their CPU stand-ins: it resumes at
-    step 4 with batches 4-7 once each and finds the restarted run equal to
-    an uninterrupted one in every loss and state leaf; its launch counts
-    are the full-depth ones scaled to this depth."""
+    the checkpoint with each later batch once and finds the restarted run
+    equal to an uninterrupted one in every loss and state leaf; its launch
+    counts are the full-depth ones scaled to this depth."""
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -532,3 +568,71 @@ def test_phase12_restart_check_on_the_cpu(tmp_path, stand_ins, monkeypatch):
                             restart=True, int8=False)
     assert out["per_step"] == scaled
     assert out["restart_loss_diff"] == out["restart_state_diff"] == 0.0
+
+
+# -- a CPU dry run of chip_smoke.py phase 17 (a)-(b) ------------------------------------
+
+@pytest.mark.parametrize("arch", ["whisper-small", "recurrentgemma-9b",
+                                  "deepseek-v2-236b", "gemma-7b",
+                                  "gemma2-27b", "qwen1.5-110b",
+                                  "chameleon-34b"])
+def test_phase17_dry_run_predicts_its_launches_and_bytes(tmp_path,
+                                                        stand_ins, arch):
+    """Phase 17's (a) float32 check and (b) train steps and ``train`` with
+    a checkpoint on CPU tensors at the phase's depths and layer kinds and
+    narrow width, the kernels' Functions on their CPU stand-ins: the flash
+    launches and recomputes of (a) and per step of (b) are those phase 17
+    asserts (``P17_LAUNCHES``), the loss falls on the repeated batch, the
+    checkpoint holds the reckoned bytes, and the byte reckoning counts the
+    parameters, moments and gradients the step really holds and the
+    stacked state the checkpoint writes; at full width the reckoning of
+    (a) and (b) stays under the phase's limit."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke as C
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.configs.reduced import reduced as treduced
+    full = tget_config(arch)
+    layers, B, S = {a: (n, b, s) for a, n, b, s in C.P17_LM}[arch]
+    big = C.p17_reckon(torch, C.p17_config(full, layers), B, S)
+    # the checkpoint sets deepseek-v2's peak: (b) writes it there only
+    assert C.p17_checkpoints(big) == (arch == "deepseek-v2-236b")
+    check = C.p17_reckon(torch, C.p17_config(full, C.p17_period(full),
+                                             "float32"), *C.P17_CHECK,
+                         optimizer=False)
+    assert max(big["total"], check["total"]) <= C.P17_BYTES_LIMIT
+
+    small = treduced(full)
+    env = C.p12_env(torch, np, "cpu", "the CPU (dry run)")
+    out = C.p17_check(env, small, arch)
+    assert out["counts"] == C.P17_LAUNCHES[arch]["check"]
+    cfg = C.p17_config(small, layers)
+    assert cfg.num_layers == layers and [s.mixer for s in cfg.all_specs] == \
+        [s.mixer for s in C.p17_config(full, layers).all_specs]
+    out = C.p17_steps(env, cfg, arch, 2, 32)
+    assert out["per_step"] == C.P17_LAUNCHES[arch]["step"]
+    assert out["losses"][-1] < out["losses"][0]
+    trained = C.p17_train(env, cfg, arch, 2, 32, tmp_path, checkpoint=True)
+    assert trained["per_step"] == C.P17_LAUNCHES[arch]["step"]
+    assert not list(tmp_path.iterdir())         # the checkpoint removed
+    opt = TS.make_optimizer(cfg)
+    state = TS.init_train_state(cfg, torch.Generator().manual_seed(0), opt,
+                                device="cpu")
+    held = tree.leaves(state["params"])
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 held + tree.leaves(state["opt"].m)
+                 + tree.leaves(state["opt"].v)) + \
+        sum(t.numel() * t.element_size() for t in held)     # gradients
+    rk = out["reckoned"]
+    assert rk["state"] == nbytes
+    assert rk["params"] == sum(t.numel() for t in held)
+    assert rk["largest_leaf"] == max(t.numel() for t in held)
+    stacked = [t for t in tree.leaves(convert.stack_state(cfg, state))
+               if t.dim() > 0]                  # all but the step count
+    assert rk["checkpoint"] == sum(t.numel() * t.element_size()
+                                   for t in stacked)
+    own = {id(t) for t in tree.leaves(state)}
+    assert rk["stacked_copy"] == sum(t.numel() * t.element_size()
+                                     for t in stacked if id(t) not in own)
+    assert rk["total"] == max(rk["step"],
+                              rk["checkpoint"] + rk["stacked_copy"])
