@@ -217,9 +217,27 @@ Phases (any failure exits non-zero before the result line):
    from a step-2 checkpoint (the reference's stacked layout, under
    ``build/``, removed), equal bit for bit to an uninterrupted run, run
    while (d) ``examples/torch/*.py`` run on the card, each in a process
-   of its own, all started together: each must exit 0.  Flash launches
-   and recomputes of (a) and per step of (b) must equal a CPU dry run's
-   (``P17_LAUNCHES``).
+   of its own, all started together: each must exit 0 (reddit_integration
+   prints its wall and modelled speedups).  Flash launches and recomputes
+   of (a) and per step of (b) must equal a CPU dry run's
+   (``P17_LAUNCHES``);
+18. the reduced configs on the card and the port's smoke scripts: (a)
+   every config's reduced sibling (head dim 16, which the flash kernel
+   runs zero-padded to 32) served at the CLI's shape (batch 4, prompt 64,
+   32 tokens) through ``python -m repro_torch.launch.serve``'s ``main``
+   and through ``serve_batch`` from weights made on the CPU, the greedy
+   ids equal to the CPU port's on the same weights, each prefill's
+   launches one per attention layer (SSD layer for mamba2), the flash
+   launcher called at head dim 32 only; then reduced internlm2-1.8b
+   trained 2 steps at the training CLI's batch (8 × 256), each step's
+   loss and every gradient leaf held to the CPU port within phase 17
+   (a)'s limits, 4 flash launches and 2 recomputes a step (a CPU dry
+   run's, ``tests/test_torch_phase18.py``); all of (a) while (b)
+   ``scripts/torch/{persistence_smoke,serving_stress,skew_smoke,
+   cluster_smoke}.py`` run on the card at the CI job's arguments, each
+   chain (write then reopen; write, crash, reopen) in order in a
+   temporary directory under ``build/`` (removed), the four chains
+   started together: every step must exit 0.
 
 Launch counters are zeroed before each main path and read just after it:
 phases 3-4 (hash-partition kernels; the scatter's route is printed and must
@@ -237,14 +255,17 @@ recurrentgemma-9b prefill, 36 per whisper-small prefill) and each part of
 phase 15 that runs the card (flash attention: 24 per prefill of (a), 48
 per train step of (b), 24 in (d)'s prefill), and each repartition of
 phase 16 (the hash-partition kernels, equal to the counts a CPU dry run
-predicts), and each call of phase 17 (a) and (b) (flash attention, equal
-to a CPU dry run's ``P17_LAUNCHES``).
+predicts), each call of phase 17 (a) and (b) (flash attention, equal
+to a CPU dry run's ``P17_LAUNCHES``), and each serve and train step of
+phase 18 (a) (flash attention and the SSD scan, one per layer a prefill;
+``P18_TRAIN_LAUNCHES`` a step).
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -4299,7 +4320,7 @@ P17_LAUNCHES = {
 }
 #: (d) ``examples/torch/<name>.py``, run on the card as they stand
 P17_EXAMPLES = ("quickstart", "autopilot_drift", "serve_batch", "train_lm",
-                "elastic_restart")
+                "elastic_restart", "reddit_integration")
 P17_EXAMPLE_TIMEOUT_S = 300
 
 
@@ -4705,10 +4726,12 @@ def p17_examples(card, meanwhile):
     walls, failed = {}, []
     for name, (proc, wall) in done:
         walls[name] = wall
-        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        lines = proc.stdout.strip().splitlines() or [""]
+        # reddit_integration's speedups stand on a line before its last
+        speedups = [x for x in lines if x.startswith("Speedups")]
         print(f"phase 17: (d) examples/torch/{name}.py exited "
               f"{proc.returncode} after {wall:.1f} s on {card}; its last "
-              f"line: {last}", flush=True)
+              f"line: {' '.join(speedups + lines[-1:])}", flush=True)
         if proc.returncode != 0:
             failed.append(name)
             print(proc.stderr[-4000:], flush=True)
@@ -4791,6 +4814,276 @@ def run_train17(torch, np, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launched
+
+
+# -- phase 18: the reduced configs on the card, the port's smoke scripts -------
+
+#: (a) the serving CLI's shape (``python -m repro_torch.launch.serve --arch
+#: X --reduced``: batch 4, prompt 64, 32 tokens, seed 0)
+P18_SERVE = (4, 64, 32)
+P18_SEED = 0
+#: (a) the training CLI's batch and sequence (``launch.train``: 8 × 256),
+#: and the steps held to the CPU port
+P18_TRAIN = (8, 256, 2)
+P18_TRAIN_ARCH = "internlm2-1.8b"
+#: (a) the head dim the kernel runs every reduced config at: 16 (MLA's
+#: q·k 16 + 8 and v 16 alike) zero-padded to the smallest built head dim
+P18_KERNEL_HD = 32
+#: (a) flash launches and backward recomputes of one reduced internlm2-1.8b
+#: train step (2 attention layers under remat: forward twice, back once),
+#: predicted by a CPU dry run (``tests/test_torch_phase18.py``)
+P18_TRAIN_LAUNCHES = {"launches": 4, "recomputes": 2}
+#: (b) ``scripts/torch/<name>.py`` at the CI job's arguments, ``{dir}`` a
+#: temporary directory of the chain's own: each chain's steps in order,
+#: the four chains together
+P18_CHAINS = (("persistence_smoke", (("write", "{dir}"), ("reopen", "{dir}"))),
+              ("serving_stress", (("20", "16", "{dir}"),)),
+              ("skew_smoke", ((),)),
+              ("cluster_smoke", (("write", "{dir}"), ("crash", "{dir}"),
+                                 ("reopen", "{dir}"))))
+P18_SCRIPT_TIMEOUT_S = 300
+
+
+def p18_expected(cfg) -> dict:
+    """Kernel launches of one reduced prefill: flash once per attention
+    (and MLA) layer, and an encoder's layers and the decoder's
+    cross-attention; the SSD scan once per SSD layer."""
+    mixers = [spec.mixer for spec in cfg.all_specs]
+    flash = sum(m in ("attn", "mla") for m in mixers)
+    if cfg.encoder is not None:
+        flash += cfg.encoder.num_layers + cfg.num_layers
+    return {"flash_attention": flash, "ssd_scan": mixers.count("ssd")}
+
+
+@contextlib.contextmanager
+def p18_head_dims(fa):
+    """Within it, a Counter of the head dims the flash launcher is called
+    at: the launcher the kernel's custom op calls is wrapped (nothing is
+    counted as a launch)."""
+    seen, launcher = Counter(), fa.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen[int(q.shape[-1])] += 1
+        return launcher(q, k, v, **kw)
+
+    fa.flash_attention = recording
+    try:
+        yield seen
+    finally:
+        fa.flash_attention = launcher
+
+
+def p18_serve(env, fa, ss, device):
+    """(a) each reduced config served at the CLI's shape: through
+    ``launch.serve.main`` itself on ``device``, and through ``serve_batch``
+    on ``device`` and on the CPU from one set of weights made on the CPU
+    (``T.init_params`` from a seeded CPU generator, the CLI's prompts and
+    zero frames): the greedy ids equal, each prefill's launches
+    :func:`p18_expected`'s, the flash launcher called at head dim
+    :data:`P18_KERNEL_HD` only.  {arch: launches of the serve_batch}."""
+    torch, np = env.torch, env.np
+    from repro_torch import tree
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    B, Sq, gen = P18_SERVE
+    out = {}
+    for arch in list_archs():
+        cfg = reduced(get_config(arch))
+        want_counts = p18_expected(cfg)
+        t0 = time.perf_counter()
+        env.reset()
+        with p18_head_dims(fa) as cli_hds:
+            serve.main(["--arch", arch, "--reduced", "--device", device])
+            env.sync()
+        cli_counts = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                      "ssd_scan": ss.LAUNCHES["ssd_scan"]}
+        params = T.init_params(cfg, torch.Generator().manual_seed(P18_SEED),
+                               "cpu")
+        prompts = np.random.default_rng(P18_SEED).integers(
+            0, cfg.vocab_size, (B, Sq), dtype=np.int32)
+        frames = None
+        if cfg.encoder is not None:
+            frames = torch.zeros((B, cfg.encoder.num_frames, cfg.d_model),
+                                 dtype=T.dtype_of(cfg))
+        want, _ = serve.serve_batch(cfg, params, prompts, gen, frames=frames,
+                                    seed=P18_SEED, device="cpu")
+        dparams = tree.map(lambda t: t.to(device), params)
+        env.reset()
+        with p18_head_dims(fa) as hds:
+            got, stats = serve.serve_batch(
+                cfg, dparams, prompts, gen, seed=P18_SEED, device=device,
+                frames=None if frames is None else frames.to(device))
+            env.sync()
+        counts = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                  "ssd_scan": ss.LAUNCHES["ssd_scan"]}
+        del dparams
+        what = (f"phase 18: (a) {arch} reduced (head dim {cfg.head_dim}, "
+                f"{cfg.num_layers} layers, {cfg.param_dtype}) B={B} S={Sq} "
+                f"+{gen}")
+        same = bool(np.array_equal(got, want))
+        first = None if same else np.argwhere(got != want)[0].tolist()
+        print(f"{what} on {env.card}: ids equal to the CPU port's {same}"
+              f"{'' if same else f' (first difference at {first})'}; "
+              f"launches {counts} (CLI {cli_counts}); flash launched at "
+              f"head dims {dict(hds)} (CLI {dict(cli_hds)}); prefill "
+              f"{stats['prefill_s']:.4f} s, {stats['tokens_per_s']:.1f} "
+              f"tokens/s; {time.perf_counter() - t0:.1f} s", flush=True)
+        if not same:
+            raise AssertionError(f"{what}: the card's greedy ids differ from "
+                                 f"the CPU port's at {first}")
+        if counts != want_counts or cli_counts != want_counts:
+            raise AssertionError(f"{what}: launches {counts}, CLI "
+                                 f"{cli_counts}, expected {want_counts}")
+        if want_counts["flash_attention"] and \
+                set(hds) | set(cli_hds) != {P18_KERNEL_HD}:
+            raise AssertionError(f"{what}: flash launched at head dims "
+                                 f"{dict(hds)} (CLI {dict(cli_hds)}), not "
+                                 f"{P18_KERNEL_HD}")
+        out[arch] = counts
+    return out
+
+
+def p18_train(env, fa, device):
+    """(a) reduced internlm2-1.8b (head dim 16) for :data:`P18_TRAIN`'s
+    steps at the training CLI's batch, on ``device`` and on the CPU port
+    from the same weights and batches (``value_and_grad``, then the
+    trainer's AdamW update on each side): each step's loss within
+    P17_LOSS_TOL relative, every gradient leaf within P17_GRAD_TOL of its
+    norm (phase 17 (a)'s limits), launches per step
+    :data:`P18_TRAIN_LAUNCHES`, all at head dim :data:`P18_KERNEL_HD`.
+    {"launches": over the steps, ...}."""
+    torch, np = env.torch, env.np
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    cfg = reduced(get_config(P18_TRAIN_ARCH))
+    B, Sq, n_steps = P18_TRAIN
+    what = (f"phase 18: (a) {P18_TRAIN_ARCH} reduced (head dim "
+            f"{cfg.head_dim}) train B={B} S={Sq}")
+    opt = S.make_optimizer(cfg, total_steps=n_steps)
+    host = T.init_params(cfg, torch.Generator().manual_seed(P18_SEED), "cpu")
+    card = tree.map(lambda t: t.to(device), host)
+    hopt, copt = opt.init(host), opt.init(card)
+    rng = np.random.default_rng(P18_SEED)
+    launched, worst, losses = 0, 0.0, []
+    for step in range(n_steps):
+        tokens = rng.integers(0, cfg.vocab_size, (B, Sq), dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(tokens),
+                 "labels": torch.from_numpy(np.roll(tokens, -1, 1))}
+        env.reset()
+        with p18_head_dims(fa) as hds:
+            loss, _, grads = S.value_and_grad(
+                cfg, card, {k: v.to(device) for k, v in batch.items()})
+            env.sync()
+        counts = env.read("flash_attention")
+        closs, _, cgrads = S.value_and_grad(cfg, host, batch)
+        rel = abs(float(loss) - float(closs)) / abs(float(closs))
+        leaf_at, leaf = None, 0.0
+        for (path, g), c in zip(tree.flatten_with_paths(grads),
+                                tree.leaves(cgrads)):
+            r = float((g.cpu() - c).norm() / c.norm().clamp_min(1e-30))
+            if r >= leaf:
+                leaf_at, leaf = tree.path_str(path), r
+        print(f"{what} step {step}: loss {float(loss):.6f} on {env.card} vs "
+              f"{float(closs):.6f} on the CPU (rel {rel:.3e}, limit "
+              f"{P17_LOSS_TOL}); largest leaf error norm / norm {leaf:.3e} "
+              f"at {leaf_at} (limit {P17_GRAD_TOL}); launches {counts} at "
+              f"head dims {dict(hds)}", flush=True)
+        if not rel <= P17_LOSS_TOL or not leaf <= P17_GRAD_TOL:
+            raise AssertionError(f"{what} step {step}: the card's loss or "
+                                 f"gradients differ from the CPU port's")
+        if counts != P18_TRAIN_LAUNCHES or set(hds) != {P18_KERNEL_HD}:
+            raise AssertionError(f"{what} step {step}: launches {counts} at "
+                                 f"{dict(hds)}, expected "
+                                 f"{P18_TRAIN_LAUNCHES} at {P18_KERNEL_HD}")
+        card, copt = opt.update(grads, copt, card)
+        host, hopt = opt.update(cgrads, hopt, host)
+        launched += counts["launches"]
+        worst = max(worst, leaf)
+        losses.append(float(loss))
+    return {"launches": launched, "grad_rel": worst, "losses": losses}
+
+
+def p18_scripts(card, meanwhile):
+    """(b) each chain of :data:`P18_CHAINS` in a temporary directory under
+    ``build/`` (removed), its steps in order, each a process of its own on
+    the card, the chains started together and ``meanwhile()`` run while
+    they run: each step must exit 0 within P18_SCRIPT_TIMEOUT_S.  Returns
+    ``meanwhile()``'s result."""
+    import os
+    import shutil
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    def chain(item):
+        name, steps = item
+        tmp = tempfile.mkdtemp(prefix=f"phase18-{name}-", dir=build)
+        done = []
+        try:
+            for args in steps:
+                argv = [a.format(dir=tmp) for a in args]
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable,
+                     str(ROOT / "scripts" / "torch" / f"{name}.py"), *argv],
+                    cwd=ROOT, env=env, capture_output=True, text=True,
+                    timeout=P18_SCRIPT_TIMEOUT_S)
+                done.append((" ".join([name] + list(args[:1])), proc,
+                             time.perf_counter() - t0))
+                if proc.returncode != 0:
+                    break
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return done
+
+    with ThreadPoolExecutor(len(P18_CHAINS)) as pool:
+        runs = pool.map(chain, P18_CHAINS)          # all submitted at once
+        result = meanwhile()
+        runs = list(runs)
+    failed = []
+    for done in runs:
+        for label, proc, wall in done:
+            last = (proc.stdout.strip().splitlines() or [""])[-1]
+            print(f"phase 18: (b) scripts/torch/{label} exited "
+                  f"{proc.returncode} after {wall:.1f} s on {card}; its last "
+                  f"line: {last}", flush=True)
+            if proc.returncode != 0:
+                failed.append(label)
+                print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
+    if failed or any(len(done) != len(steps)
+                     for done, (_, steps) in zip(runs, P18_CHAINS)):
+        raise AssertionError(f"phase 18 (b): scripts failed: {failed}")
+    return result
+
+
+def run_phase18(torch, np, card):
+    """Phase 18: (b) the smoke scripts' chains on the card while (a) serves
+    every reduced config and trains reduced internlm2-1.8b in this
+    process.  Returns the LM kernels' launches of (a)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    env = p12_env(torch, np, "cuda", card)
+
+    def reduced_configs():
+        t0 = time.perf_counter()
+        served = p18_serve(env, fa, ss, "cuda")
+        trained = p18_train(env, fa, "cuda")
+        print(f"phase 18: (a) done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        launched = Counter({"flash_attention": trained["launches"]})
+        for counts in served.values():
+            launched.update(counts)
+        return dict(launched)
+
+    return p18_scripts(card, reduced_configs)
 
 
 def main() -> int:
@@ -5011,6 +5304,15 @@ def main() -> int:
     launches["flash_attention"] += phase17
     print(f"phase 17: done in {time.perf_counter() - t17:.1f} s on {card}; "
           f"flash launches over (a) and (b) {phase17}", flush=True)
+
+    t18 = time.perf_counter()
+    phase18 = run_phase18(torch, np, card)
+    for k, v in phase18.items():
+        if v == 0:
+            return fail(f"phase 18 never launched {k}")
+        launches[k] += v
+    print(f"phase 18: done in {time.perf_counter() - t18:.1f} s on {card}; "
+          f"launches over (a) {phase18}", flush=True)
 
     missing = [k for k, v in launches.items() if v == 0]
     if missing:

@@ -10,9 +10,8 @@ re-mesh, reshard, resume — the counterpart of
      seekable TokenSource replays the batch stream exactly-once (the
      training runs on the card).
 
-The training runs the JAX example's reduced config at head dim 32, not
-16: a limit of the port, whose flash kernel takes head dims 32, 64, 128
-and 256 on the card (ROADMAP Queue 3 item 7).
+The training runs the JAX example's reduced config (head dim 16, which
+the flash kernel runs zero-padded to 32 on the card).
 
 Run:  PYTHONPATH=src python examples/torch/elastic_restart.py          # card
       PYTHONPATH=src python examples/torch/elastic_restart.py --device cpu
@@ -60,10 +59,8 @@ def main(argv=None):
           f"{plan['assignments'][0]}")
 
     # --- resume training (reduced width, the same code path) ---------------
-    # head_dim 32: the port's flash kernel refuses the reduced 16 on the
-    # card (a limit of the port; ROADMAP Queue 3 item 7)
     cfg = dataclasses.replace(reduced(get_config("internlm2-1.8b")),
-                              num_layers=2, head_dim=32)
+                              num_layers=2)
     with tempfile.TemporaryDirectory(prefix="elastic_ckpt_") as ckpt:
         run = TrainRun(cfg=cfg, total_steps=30, global_batch=8, seq_len=64,
                        ckpt_dir=ckpt, ckpt_every=10, peak_lr=1e-3,

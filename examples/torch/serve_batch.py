@@ -5,17 +5,14 @@ KV cache.
 Uses the internlm2-1.8b family at reduced width with seeded random
 weights; the same ``repro_torch.launch.serve`` entry point serves the
 full config (``python -m repro_torch.launch.serve --arch
-internlm2-1.8b``).  A limit of the port, not of the example: its flash
-kernel takes head dims 32, 64, 128 and 256, so the reduced config's head
-dim of 16, which the JAX example uses, is raised to 32 (the reference's
-kernel takes any head dim; ROADMAP Queue 3 item 7).
+internlm2-1.8b``).  The reduced config's head dim is 16, the JAX
+example's; on the card the flash kernel runs it zero-padded to 32.
 
 Run:  PYTHONPATH=src python examples/torch/serve_batch.py              # card
       PYTHONPATH=src python examples/torch/serve_batch.py --device cpu
 """
 
 import argparse
-import dataclasses
 
 import numpy as np
 import torch
@@ -27,10 +24,8 @@ from repro_torch.models import transformer as T
 
 
 def config():
-    """internlm2-1.8b at reduced width, with head_dim 32: the port's flash
-    kernel refuses the reduced config's 16 on the card."""
-    return dataclasses.replace(reduced(get_config("internlm2-1.8b")),
-                               head_dim=32)
+    """internlm2-1.8b at reduced width, the JAX example's config."""
+    return reduced(get_config("internlm2-1.8b"))
 
 
 def generate(cfg, params, prompts, device, gen_tokens=32):

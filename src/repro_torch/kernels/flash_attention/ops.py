@@ -27,10 +27,20 @@ redistributes other inputs to one of those first.  Head sharding is
 offered only with more than one kv head, so a query head never lands
 apart from its kv head.  On DTensors the backward runs the twin's VJP
 shard by shard in the layout the kernel ran in (:mod:`.._spmd`).
+
+The kernel is instantiated for the head dims in ``HEAD_DIMS`` (32, 64,
+128, 256), where the reference's Pallas kernel takes any.  A CUDA or meta
+tensor of another head dim up to 256 (16 in every reduced config) goes
+through :func:`pad_to_kernel`: q, k and v zero-padded on their last axis
+to :func:`padded_head_dim`, the scale of the unpadded width passed, the
+output sliced back.  Zero columns add nothing to q·k, and the padded
+columns of P·V are dropped, so the values are the kernel's at the padded
+width; the gradient flows through the pad and the slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -109,15 +119,54 @@ class KernelAttention(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+def padded_head_dim(d: int) -> int:
+    """The smallest head dim the kernel is instantiated for that holds
+    ``d``; ``ValueError`` past the largest."""
+    for hd in _k.HEAD_DIMS:
+        if hd >= d:
+            return hd
+    raise ValueError(f"head dim {d}: the flash-attention kernel takes at "
+                     f"most {_k.HEAD_DIMS[-1]}")
+
+
+def pad_to_kernel(attend, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, causal: bool, window: Optional[int],
+                  softcap: float, scale: Optional[float]) -> torch.Tensor:
+    """``attend(q, k, v, causal, window, softcap, scale)`` (the kernel's
+    :class:`KernelAttention`, or a stand-in) on q, k and v zero-padded
+    from their head dim to :func:`padded_head_dim`'s, with the scale of
+    the unpadded width; the output sliced back to it.  DTensors are padded
+    by concatenation, so their batch and head sharding carries through."""
+    hd = q.shape[-1]
+    pad = (0, padded_head_dim(hd) - hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    out = attend(_spmd.pad_zeros(q, pad), _spmd.pad_zeros(k, pad),
+                 _spmd.pad_zeros(v, pad), causal, window, softcap, scale)
+    return out[..., :hd]
+
+
+def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, window: Optional[int], softcap: float,
+                     scale: Optional[float]) -> torch.Tensor:
+    """The kernel's route: :class:`KernelAttention` on a head dim of
+    ``HEAD_DIMS`` (or past 256, which the launcher refuses), through
+    :func:`pad_to_kernel` on any other."""
+    hd = q.shape[-1]
+    if hd in _k.HEAD_DIMS or hd > _k.HEAD_DIMS[-1]:
+        return KernelAttention.apply(q, k, v, causal, window, softcap, scale)
+    return pad_to_kernel(KernelAttention.apply, q, k, v, causal, window,
+                         softcap, scale)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: float = 0.0,
               scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,H,S,hd); k/v: (B,KV,S,hd) → (B,H,S,hd) in q's dtype.  CUDA
-    and meta tensors take the kernel's custom op (meta: its shapes only),
-    CPU tensors the plain version."""
+    and meta tensors take the kernel's custom op (meta: its shapes only)
+    through :func:`kernel_attention`; CPU tensors the plain version."""
     if q.device.type in ("cuda", "meta"):
-        return KernelAttention.apply(q, k, v, causal, window, softcap, scale)
+        return kernel_attention(q, k, v, causal, window, softcap, scale)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels._spmd import pad_zeros  # noqa: F401 (the models' import)
 from ..kernels.flash_attention import ops as flash_ops
 from ..pjit_utils import mesh_of, shard_index, use_param
 
@@ -134,32 +135,6 @@ def sinusoidal_embed(length: int, d: int, device=None) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
-
-
-def pad_zeros(x: torch.Tensor, pad) -> torch.Tensor:
-    """``F.pad(x, pad)`` with zeros.  A DTensor is padded by concatenating
-    zero slices of itself along each padded dim, so its layout carries
-    through (some torch versions' DTensor fails to redistribute for
-    ``pad``); the values are the same."""
-    if mesh_of(x) is None:
-        return F.pad(x, pad)
-    for k in range(len(pad) // 2):
-        dim = x.dim() - 1 - k
-        parts = [_zeros_along(x, dim, pad[2 * k]), x,
-                 _zeros_along(x, dim, pad[2 * k + 1])]
-        parts = [t for t in parts if t is not None]
-        if len(parts) > 1:
-            x = torch.cat(parts, dim=dim)
-    return x
-
-
-def _zeros_along(x: torch.Tensor, dim: int, n: int):
-    if not n:
-        return None
-    z = torch.zeros_like(x.narrow(dim, 0, min(n, x.shape[dim])))
-    while z.shape[dim] < n:
-        z = torch.cat([z, z], dim=dim)
-    return z.narrow(dim, 0, n)
 
 
 # ---------------------------------------------------------------------------

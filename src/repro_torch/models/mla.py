@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.flash_attention.flash_attention import HEAD_DIMS
+from ..kernels.flash_attention import ops as flash_ops
 from ..pjit_utils import constrain_batch_only, use_param
 from .layers import (Params, apply_rope, auto_sdpa, cache_write, dense,
                      dense_init, full_attention, pad_zeros, rmsnorm,
@@ -81,11 +81,7 @@ def _expand_kv(p, c_kv, H, nd, vd):
 
 def padded_head_dim(qk_dim: int, v_dim: int) -> int:
     """The smallest kernel head dim that holds both q·k's and v's widths."""
-    for hd in HEAD_DIMS:
-        if hd >= max(qk_dim, v_dim):
-            return hd
-    raise ValueError(f"MLA head dims {qk_dim}/{v_dim}: the flash-attention "
-                     f"kernel takes at most {HEAD_DIMS[-1]}")
+    return flash_ops.padded_head_dim(max(qk_dim, v_dim))
 
 
 def padded_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,

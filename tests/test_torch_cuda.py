@@ -1251,3 +1251,29 @@ def test_cuda_train_step_matches_the_cpu(cuda, arch):
                     tree.leaves(cstate["params"])):
         rel = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
         assert rel <= 1e-3, rel
+
+
+# -- any head dim through the flash kernel ---------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma2-27b"])
+def test_cuda_reduced_config_at_head_dim_16_serves_through_the_padded_kernel(
+        cuda, arch):
+    """A reduced config as it stands (head dim 16, float32) served on the
+    card equals the same weights served on the CPU twin, id for id; its
+    prefill launched the kernel once per layer (at head dim 32, zero-
+    padded), while the launcher alone still refuses head dim 16."""
+    cfg = reduced(get_config(arch))
+    assert cfg.head_dim == 16
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40),
+                                                dtype=np.int32)
+    want, _ = tserve.serve_batch(cfg, params, prompts, 8, device="cpu")
+    fa.reset_launches()
+    got, _ = tserve.serve_batch(cfg, _to_device(params, cuda), prompts, 8,
+                                device=cuda)
+    assert fa.LAUNCHES["flash_attention"] == cfg.num_layers
+    np.testing.assert_array_equal(got, want)
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dim 16"):
+        fa.flash_attention(q, q, q)

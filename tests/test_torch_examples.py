@@ -2,10 +2,11 @@
 its end with ``--device cpu`` at its reduced size, each refuses to run
 with no card and no ``--device``, and where an example's output is
 deterministic it equals the JAX example's — quickstart's advisor pick,
-elided shuffles and join results, and serve_batch's greedy ids from the
-reference's weights carried across with ``convert.params_from_jax``."""
+elided shuffles and join results, serve_batch's greedy ids from the
+reference's weights carried across with ``convert.params_from_jax``, and
+reddit_integration's advisor pick, shuffle counts and join results against
+``benchmarks.bench_reddit``'s."""
 
-import dataclasses
 import importlib.util
 import runpy
 import subprocess
@@ -28,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = ROOT / "examples" / "torch"
 EXAMPLES = ["quickstart", "autopilot_drift", "serve_batch", "train_lm",
-            "elastic_restart"]
+            "elastic_restart", "reddit_integration"]
 #: the CPU size of each run: train_lm takes fewer steps than its 120 (it
 #: checkpoints every 6, before its failure injected at step 12)
 ARGS = {"train_lm": ["--steps", "24"]}
@@ -42,10 +43,10 @@ def _load(path: Path, name: str):
     return mod
 
 
-def test_the_port_has_a_counterpart_of_each_example_but_reddit():
+def test_the_port_has_a_counterpart_of_each_example():
     jax_examples = {p.stem for p in (ROOT / "examples").glob("*.py")}
     assert sorted(p.stem for p in PORT.glob("*.py")) == sorted(EXAMPLES)
-    assert jax_examples - set(EXAMPLES) == {"reddit_integration"}
+    assert jax_examples == set(EXAMPLES)
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -110,33 +111,87 @@ def test_quickstart_matches_the_jax_example():
 
 
 def test_serve_batch_matches_the_jax_example():
-    """The JAX example, run at the port example's config, and its weights
-    and prompts carried into the port's example: the same greedy ids.  The
-    port's example has head_dim 32 where the JAX example's reduced config
-    has 16, which the port's flash kernel refuses on the card (a
-    divergence, ROADMAP Queue 3 item 7), so the JAX example is run at 32
-    here."""
+    """The JAX example run as it stands, and its weights and prompts
+    carried into the port's example: the same config (head dim 16) and the
+    same greedy ids."""
     port = _load(PORT / "serve_batch.py", "port_serve_batch")
-    cfg = port.config()
     jex = _load(ROOT / "examples" / "serve_batch.py", "jax_serve_batch")
-    jreduced = jex.reduced
-    jex.reduced = lambda c: dataclasses.replace(
-        jreduced(c), head_dim=cfg.head_dim)
     seen = {}
     inner = jex.serve_batch
 
     def record(cfg, params, prompts, gen_tokens):
         gen, stats = inner(cfg, params, prompts, gen_tokens=gen_tokens)
-        seen.update(params=params, prompts=prompts, gen=gen)
+        seen.update(cfg=cfg, params=params, prompts=prompts, gen=gen)
         return gen, stats
 
     jex.serve_batch = record
     jex.main()
-    assert cfg == dataclasses.replace(reduced(get_config("internlm2-1.8b")),
-                                      head_dim=32)
+    cfg = port.config()
+    assert cfg == reduced(get_config("internlm2-1.8b"))
+    assert (cfg.name, cfg.head_dim, cfg.num_layers, cfg.d_model) == (
+        seen["cfg"].name, seen["cfg"].head_dim, seen["cfg"].num_layers,
+        seen["cfg"].d_model) and cfg.head_dim == 16
     params = convert.params_from_jax(
         cfg, jax.tree.map(np.asarray, seen["params"]))
     got = port.generate(cfg, params, np.asarray(seen["prompts"]), "cpu",
                         gen_tokens=seen["gen"].shape[1])
     np.testing.assert_array_equal(got, np.asarray(seen["gen"]))
 
+
+def _tables(values):
+    return {nid: v for nid, v in values.items()
+            if isinstance(v, (JTableVal, TableVal))}
+
+
+def test_reddit_integration_matches_the_benchmark(monkeypatch):
+    """At a small size, ``benchmarks.bench_reddit.run_case`` (the JAX
+    example's scenario, run as it stands with its Session and advisor
+    recorded) and the port example's ``run_case`` on the CPU: the same
+    advisor pick, the same shuffles performed and elided and bytes
+    shuffled over round-robin and partitioned storage, and every table of
+    both joins equal."""
+    if str(ROOT) not in sys.path:
+        monkeypatch.syspath_prepend(str(ROOT))
+    from benchmarks import bench_reddit, common
+    runs, decisions = [], []
+
+    class Recorded(common.Session):
+        def run(self, *a, **kw):
+            res = super().run(*a, **kw)
+            runs.append(res)
+            return res
+
+    def decide(*a, **kw):
+        decisions.append(common.advisor_decide(*a, **kw))
+        return decisions[-1]
+
+    monkeypatch.setattr(common, "Session", Recorded)
+    monkeypatch.setattr(bench_reddit, "advisor_decide", decide)
+    bench_reddit.run_case("test", 20_000, 5_000)
+    want_base, want_opt = runs[2], runs[5]          # 3 repeats a store
+    port = _load(PORT / "reddit_integration.py", "port_reddit")
+    np.testing.assert_array_equal(
+        port.make_data(20_000, 5_000)[0]["author"],
+        bench_reddit.make_data(20_000, 5_000)[0]["author"])
+    got = port.run_case("test", 20_000, 5_000, torch.device("cpu"))
+    assert got["decision"].candidate.signature() == \
+        decisions[0].candidate.signature()
+    assert got["decision"].candidate.strategy == \
+        decisions[0].candidate.strategy
+    for side, want in (("base", want_base), ("opt", want_opt)):
+        stats = want.stats
+        assert (got[side]["shuffles"], got[side]["elided"],
+                got[side]["shuffle_bytes"]) == (
+            stats.shuffles_performed, stats.shuffles_elided,
+            stats.shuffle_bytes), side
+        tables = _tables(want.values)
+        assert tables and set(tables) == set(_tables(got[side]["values"]))
+        for nid, h in tables.items():
+            d = got[side]["values"][nid]
+            np.testing.assert_array_equal(d.counts, h.counts)
+            assert set(d.columns) == set(h.columns)
+            for k in h.columns:
+                np.testing.assert_array_equal(
+                    np.asarray(d.columns[k]), np.asarray(h.columns[k]),
+                    err_msg=f"{side} node {nid} col {k}")
+    assert (got["base"]["shuffles"], got["opt"]["shuffles"]) == (2, 0)

@@ -250,3 +250,101 @@ def test_rel_rms_check_catches_a_dropped_tile():
     dropped = rel_rms(emulate_bf16_kernel(q, k, v, causal=True, window=None,
                                           softcap=0.0, drop_tile=8), want)
     assert whole <= RMS_LIMIT < dropped
+
+
+def _twin(q, k, v, causal, window, softcap, scale):
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap, scale=scale)
+
+
+# (hd, causal, window, softcap): GQA 4 over 2 kv heads throughout
+PADDED_CASES = [(8, True, None, 0.0), (16, True, None, 30.0),
+                (24, True, 24, 0.0), (48, False, None, 50.0),
+                (80, True, 40, 30.0), (96, True, None, 0.0),
+                (200, True, 64, 0.0)]
+
+
+@pytest.mark.parametrize("case", PADDED_CASES)
+def test_padded_route_equals_the_unpadded_twin(case):
+    """The route a CUDA tensor of a head dim the kernel is not built for
+    takes (zero-pad q, k and v to the next built head dim, pass the
+    unpadded scale, slice the output), with the plain twin standing in for
+    the kernel: values and q/k/v gradients equal the twin at the unpadded
+    width within 1e-6 (float32)."""
+    hd, causal, window, cap = case
+    rng = np.random.default_rng(hd)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((2, 4, 72, hd), (2, 2, 72, hd), (2, 2, 72, hd))]
+    cot = torch.from_numpy(rng.standard_normal((2, 4, 72, hd))
+                           .astype(np.float32))
+    outs = []
+    for route in (lambda *a: ops.pad_to_kernel(_twin, *a), _twin):
+        x = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        out = route(*x, causal, window, cap, None)
+        assert tuple(out.shape) == (2, 4, 72, hd)
+        outs.append((out.detach(), *torch.autograd.grad(out, x, cot)))
+    for got, want, what in zip(outs[0], outs[1], ("out", "dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                                   rtol=1e-6, err_msg=what)
+
+
+@pytest.mark.parametrize("hd,kernel_hd", [(16, 32), (8, 32), (48, 64),
+                                          (96, 128), (200, 256), (64, 64)])
+def test_dispatcher_sends_other_head_dims_to_the_kernel_padded(
+        monkeypatch, hd, kernel_hd):
+    """On meta tensors (the CUDA route's shapes) the dispatcher hands the
+    kernel's Function head dim ``kernel_hd`` with the unpadded scale, and
+    returns ``hd`` wide; never the plain twin."""
+    seen = []
+
+    class Recorder:
+        @staticmethod
+        def apply(q, k, v, causal, window, softcap, scale):
+            seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+            return ops.flash_attention_op(q, k, v, causal, window, softcap,
+                                          scale)
+
+    monkeypatch.setattr(ops, "KernelAttention", Recorder)
+    monkeypatch.setattr(ops, "attention_ref", None)
+    q = torch.empty((2, 4, 40, hd), device="meta")
+    k = torch.empty((2, 2, 40, hd), device="meta")
+    out = ops.attention(q, k, k, causal=True)
+    assert tuple(out.shape) == (2, 4, 40, hd)
+    want_scale = None if hd == kernel_hd else 1.0 / math.sqrt(hd)
+    assert seen == [(kernel_hd,) * 3 + (want_scale,)]
+
+
+def test_padded_head_dim_and_its_limit():
+    assert [ops.padded_head_dim(d) for d in (1, 16, 32, 33, 200, 256)] == \
+        [32, 32, 32, 64, 256, 256]
+    with pytest.raises(ValueError, match="at most 256"):
+        ops.padded_head_dim(257)
+
+
+def test_padded_route_keeps_a_dtensors_layout():
+    """Meta DTensors of head dim 16 on a fake (2, 2) mesh, batch-sharded
+    over "data" and head-sharded over "model": the dispatcher pads them by
+    concatenation, the kernel's op runs on shards of head dim 32, and the
+    output is a DTensor of head dim 16 in the inputs' layout."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from repro_torch.kernels import cost
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        lay = [Shard(0), Shard(1)]
+        q = distribute_tensor(torch.empty((4, 4, 64, 16), device="meta"),
+                              mesh, lay)
+        k = distribute_tensor(torch.empty((4, 2, 64, 16), device="meta"),
+                              mesh, lay)
+        out, t = op_analysis.count(ops.attention, q, k, k, causal=True,
+                                   mesh=mesh)
+        assert isinstance(out, DTensor) and tuple(out.placements) == \
+            tuple(lay)
+        assert tuple(out.shape) == (4, 4, 64, 16)
+        assert tuple(out.to_local().shape) == (2, 2, 64, 16)
+        assert t.kernel_calls == {"flash_attention": 1}
+        # each rank's call: 2 rows, 2 heads over 1 kv head, at head dim 32
+        assert t.flops == cost.flash_attention_cost(
+            2, 2, 1, 64, 64, 32, True, None, 4)[0]

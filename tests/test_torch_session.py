@@ -649,12 +649,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                     AbstractMesh((16, 16), ("data", "model")))
         assert tuple(ps["layers"][0]["attn"]["wq"]["w"]) == (None, "model")
         assert not pjit_utils.spmd_enabled() and dryrun and op_analysis
-        # the examples on the port: each one's imports, its main not run
+        # the examples and smoke scripts on the port: each one's imports,
+        # its main not run
         import pathlib
         import runpy
         examples = sorted(pathlib.Path(EXAMPLES).glob("*.py"))
-        assert len(examples) == 5, examples
-        for path in examples:
+        scripts = sorted(pathlib.Path(SCRIPTS).glob("*.py"))
+        assert len(examples) == 6, examples
+        assert [p.stem for p in scripts] == [
+            "cluster_smoke", "persistence_smoke", "serving_stress",
+            "skew_smoke"], scripts
+        for path in examples + scripts:
             assert callable(runpy.run_path(str(path),
                                            run_name="example")["main"])
         bad = sorted(m for m in sys.modules
@@ -662,7 +667,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                             "lachesis"))
         assert not bad, bad
         print("isolated")
-    """).replace("EXAMPLES", repr(str(SRC.parent / "examples" / "torch")))
+    """).replace("EXAMPLES", repr(str(SRC.parent / "examples" / "torch"))
+           ).replace("SCRIPTS", repr(str(SRC.parent / "scripts" / "torch")))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
