@@ -1,10 +1,11 @@
-"""Build and load one hand-written CUDA kernel family.
+"""Build and load the hand-written CUDA kernel families.
 
-Every family keeps its kernels in one ``csrc/*.cu`` file with a plain C
-interface.  :class:`CudaLibrary` compiles it with ``nvcc`` for ``sm_90a``
-into ``build/torch_kernels/lib<name>.so`` at first use — never at import, so
-the CPU tests import every kernel module freely — and loads it with
-:mod:`ctypes`.  A failed build raises; nothing falls back.
+Every family keeps its kernels in ``csrc/*.cu`` files with a plain C
+interface, one shared library a file (the headers a file includes named as
+its ``deps``).  :class:`CudaLibrary` compiles one with ``nvcc`` for
+``sm_90a`` into ``build/torch_kernels/lib<name>.so`` at first use — never
+at import, so the CPU tests import every kernel module freely — and loads
+it with :mod:`ctypes`.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -72,15 +73,18 @@ def raise_on(err: int, kernel: str) -> None:
 class CudaLibrary:
     """One ``.cu`` source, its shared library and its ctypes signatures.
 
-    ``declare(lib)`` sets ``argtypes``/``restype`` of the C entry points.
+    ``declare(lib)`` sets ``argtypes``/``restype`` of the C entry points;
+    ``deps`` are the headers the source includes, hashed with it.
     :attr:`log` keeps what the last build printed (``-Xptxas -v``:
     registers, shared memory, spills) and :attr:`seconds` how long it took.
     """
 
     def __init__(self, name: str, source: Path,
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 deps: Sequence[Path] = ()):
         self.name = name
         self.source = source
+        self.deps = tuple(deps)
         self.library = BUILD_DIR / f"lib{name}.so"
         self._declare = declare
         self._lock = threading.Lock()
@@ -93,7 +97,7 @@ class CudaLibrary:
         same source and flags is already there.  The library is written to
         a temporary name and renamed into place, so concurrent builds
         never load a half-written file."""
-        src = self.source.read_bytes()
+        src = b"".join(p.read_bytes() for p in (self.source, *self.deps))
         digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()
         stamp = self.library.with_suffix(".sha256")

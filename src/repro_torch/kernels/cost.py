@@ -1,4 +1,4 @@
-"""The work of the two LM kernels: FLOPs and the bytes they must move.
+"""The work of the LM kernels: FLOPs and the bytes they must move.
 
 One place for the formulas that ``chip_smoke.py`` phases 5, 6 and 14 use
 for the kernels' bounds and that the dry run's counting mode
@@ -27,11 +27,29 @@ def attention_pairs(Sq: int, Skv: int, causal: bool,
 
 def flash_attention_cost(B: int, H: int, KV: int, Sq: int, Skv: int,
                          hd: int, causal: bool, window: Optional[int],
-                         itemsize: int) -> Tuple[float, float]:
+                         itemsize: int, lse: bool = False
+                         ) -> Tuple[float, float]:
     """(FLOPs, bytes) of one flash-attention forward: QK^T and PV over the
-    kept pairs of every (batch row, head); q, k, v read and out written."""
+    kept pairs of every (batch row, head); q, k, v read and out written
+    (with ``lse``, the float32 row log-sum-exp written too)."""
     flops = 4.0 * hd * attention_pairs(Sq, Skv, causal, window) * B * H
-    nbytes = float(itemsize * (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd))
+    nbytes = float(itemsize * (2 * B * H * Sq * hd + 2 * B * KV * Skv * hd)
+                   + (4 * B * H * Sq if lse else 0))
+    return flops, nbytes
+
+
+def flash_attention_bwd_cost(B: int, H: int, KV: int, Sq: int, Skv: int,
+                             hd: int, causal: bool, window: Optional[int],
+                             itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one flash-attention backward: 10·hd FLOPs a kept
+    pair (the recomputed S, dP, dV, dQ and dK, 2 a multiply-add each) of
+    every (batch row, head); q, k, v, out, dout and the float32 lse read,
+    dq, dk and dv written."""
+    flops = 10.0 * hd * attention_pairs(Sq, Skv, causal, window) * B * H
+    q_like, kv_like = B * H * Sq * hd, B * KV * Skv * hd
+    nbytes = float(itemsize * (3 * q_like + 2 * kv_like)     # q, out, dout
+                   + 4 * B * H * Sq                          # lse
+                   + itemsize * (q_like + 2 * kv_like))      # dq, dk, dv
     return flops, nbytes
 
 

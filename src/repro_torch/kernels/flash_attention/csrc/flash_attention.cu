@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a): online-softmax attention over
 // (B, H, Sq, hd) queries and (B, KV, Skv, hd) keys/values, the prefill
-// attention of the LM serving path.
+// attention of the LM serving path and the forward of the training path.
 //
 // Replaces the Pallas TPU kernel of
 // src/repro/kernels/flash_attention/flash_attention.py:
@@ -11,6 +11,10 @@
 // (tanh(s / cap) * cap), the kv tail masked; m, l and acc in float32; the
 // output in the input's type.  Masked scores are the -1e30 sentinel, never
 // -inf, and the final denominator is floored at 1e-30, as in the Pallas body.
+// For training it also writes each row's log-sum-exp, lse = m + ln(l) in
+// float32 (natural log in both kernels), which the backward
+// (flash_attention_bwd.cu) recomputes P from; serving passes no lse buffer,
+// writes none and (bf16) runs an instantiation without the store.
 //
 // What bounds it on this card: at the internlm2-1.8b prefill shape
 // (B=8, H=16, KV=8, S=4096, hd=128, causal) the work is 5.5e11 FLOPs against
@@ -22,6 +26,13 @@
 // axis); strides in elements for every dimension but hd let the model's
 // (B, S, H, hd) projections, viewed as (B, H, S, hd), be read in place and
 // the output be written straight into a (B, S, H, hd) buffer.
+//
+// Head dims: each kernel is built for 32, 64, 128 and 256.  A head dim
+// above 256 (a multiple of 32) is split into slices of built widths (256,
+// then 128, 64, 32): one launch per slice, each accumulating O for its own
+// columns [c0, c0 + HD) (WIDE), while q.k^T runs over the full width in
+// chunks of HD columns staged through shared memory, zero past hd.  Every
+// slice recomputes the scores; only the first writes lse.
 //
 // bfloat16 (flash_fwd_bf16): the tensor cores, FlashAttention-2 style.
 //  * 4 warps; S = Q.K^T and O += P.V are mma.sync.m16n8k16 (bf16 in,
@@ -35,13 +46,16 @@
 //    flag; with it, hd = 128 keeps 16 rows a warp (64-row q tile) and Q in
 //    registers, as hd 32 and 64 do.  At hd = 256 the 16x256 accumulator
 //    alone takes 128 registers, so Q is re-read and the kv tile is 32 rows.
-//    Every instantiation fits in 255 registers with no spills (the build's
-//    -Xptxas -v log).
+//    A WIDE slice keeps 16 rows a warp at every width.  Every instantiation
+//    fits in 255 registers with no spills (the build's -Xptxas -v log) but
+//    the training one at hd = 128 (32-row warps with the lse store), which
+//    spills 40 B.
 //  * K and V tiles (64 keys) come through a 2-stage ring in shared memory
 //    by cp.async (16 B a thread, rows past Skv zero-filled, so no stale NaN
 //    meets a p of 0): tile kt+1 is in flight while tile kt is multiplied.
 //    Q is loaded once per CTA.  Rows are padded by 16 B, so the 8 rows of
-//    one ldmatrix phase fall on 8 distinct 16-B bank groups.
+//    one ldmatrix phase fall on 8 distinct 16-B bank groups.  A WIDE slice
+//    stages each q.k chunk of Q and K, then V's slice, synchronously.
 //  * The scale is applied to the float32 scores (s * scale; softcap
 //    tanh(s * scale / cap) * cap), with log2(e) folded in for ex2.approx;
 //    the reference scales q in float32 before the product, which differs
@@ -54,7 +68,7 @@
 //    (within its bf16 limit of 2e-2).  The row sum l takes the float32 p.
 //  * Epilogue: O / max(l, 1e-30), rounded to bf16, staged through the
 //    warp's own Q rows in shared memory, written as 16-B stores; q rows
-//    >= Sq are never written.
+//    >= Sq are never written.  lse = (m + log2 l) ln 2, m kept in log2 units.
 //  The further step is wgmma with TMA loads and warp specialisation (a
 //  producer warp feeding consumer warpgroups, B read from shared memory by
 //  the hardware, not by ldmatrix), the only way to the card's full
@@ -70,35 +84,26 @@
 // (for P.V); P stays float32.  Ragged q and kv edges are bounds checks,
 // not padding copies; no score ever takes exp of a positive difference.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fa_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using fa::kNegInf;
 
 struct FaArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                           // (B, H, Sq) or null: none written
   int H, KV, Sq, Skv;
+  int hd, c0, nch;                      // full head dim; this launch's
+                                        // output columns [c0, c0 + HD);
+                                        // q.k chunks of HD columns
   int64_t qs[3], ks[3], vs[3], os[3];   // strides of (b, h, s), in elements
   float scale, softcap;
   int causal, window;                   // window <= 0: no window
 };
-
-// kv tiles a q tile [q0, q0 + rows) needs: causal stops at the tile of its
-// last row, a window starts at the tile of its first row's first key
-__device__ __forceinline__ void kv_range(const FaArgs& a, int q0, int rows,
-                                         int bk, int* begin, int* end) {
-  const int q_last = min(q0 + rows, a.Sq) - 1;
-  const int nk = (a.Skv + bk - 1) / bk;
-  *end = a.causal ? min(nk, q_last / bk + 1) : nk;
-  *begin = (a.window > 0 && q0 - a.window + 1 > 0)
-               ? (q0 - a.window + 1) / bk : 0;
-}
 
 // -- float32: CUDA cores -------------------------------------------------------
 
@@ -115,13 +120,13 @@ constexpr int smem_floats() {
   return 2 * kBQ * (HD + 1) + kBQ * kPLD;
 }
 
-template <int HD>
+template <int HD, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const FaArgs a) {
   constexpr int LD = HD + 1;        // padded row stride of Q and K/V tiles
   constexpr int CJ = HD / 16;       // output columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;                 // kBQ x LD: q * scale
+  float* Qs = smem;                 // kBQ x LD: q * scale (WIDE: one chunk)
   float* KVs = Qs + kBQ * LD;       // kBK x LD: K tile, then V tile
   float* Ps = KVs + kBK * LD;       // kBQ x kPLD: probabilities
 
@@ -133,17 +138,24 @@ flash_fwd_f32(const FaArgs a) {
   const float* qp = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[1];
   const float* kp = static_cast<const float*>(a.k) + b * a.ks[0]
                     + kvh * a.ks[1];
+  const int c0 = WIDE ? a.c0 : 0;   // this launch's output columns
   const float* vp = static_cast<const float*>(a.v) + b * a.vs[0]
-                    + kvh * a.vs[1];
-  float* op = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1];
+                    + kvh * a.vs[1] + c0;
+  float* op = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1] + c0;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD, qi = q0 + r;
-    Qs[r * LD + d] = qi < a.Sq ? qp[qi * a.qs[2] + d] * a.scale : 0.f;
-  }
+  // Q's columns [col, col + HD), pre-scaled, zero past Sq and hd
+  auto load_q = [&](int col) {
+    for (int e = tid; e < kBQ * HD; e += kThreads) {
+      const int r = e / HD, d = e % HD, qi = q0 + r;
+      Qs[r * LD + d] = qi < a.Sq && (!WIDE || col + d < a.hd)
+                           ? qp[qi * a.qs[2] + col + d] * a.scale : 0.f;
+    }
+  };
+  if constexpr (!WIDE) load_q(0);
 
   int kt_begin, kt_end;
-  kv_range(a, q0, kBQ, kBK, &kt_begin, &kt_end);
+  fa::kv_range(a.Sq, a.Skv, a.causal, a.window, q0, kBQ, kBK, &kt_begin,
+               &kt_end);
 
   float m_i[4], l_i[4], acc[4][CJ];
 #pragma unroll
@@ -156,29 +168,33 @@ flash_fwd_f32(const FaArgs a) {
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();                // the last tile's V and P are consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD, kj = k0 + r;
-      KVs[r * LD + d] = kj < a.Skv ? kp[kj * a.ks[2] + d] : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int ch = 0; ch < (WIDE ? a.nch : 1); ++ch) {
+      const int col = ch * HD;
+      __syncthreads();              // the last tile's V and P (or chunk)
+      if constexpr (WIDE) load_q(col);               // are consumed
+      for (int e = tid; e < kBK * HD; e += kThreads) {
+        const int r = e / HD, d = e % HD, kj = k0 + r;
+        KVs[r * LD + d] = kj < a.Skv && (!WIDE || col + d < a.hd)
+                              ? kp[kj * a.ks[2] + col + d] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
+      for (int d = 0; d < HD; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
+        for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = KVs[(tx + 16 * j) * LD + d];
+        for (int j = 0; j < 4; ++j) kv[j] = KVs[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -246,17 +262,20 @@ flash_fwd_f32(const FaArgs a) {
 #pragma unroll
     for (int c = 0; c < CJ; ++c)
       op[qi * a.os[2] + tx + 16 * c] = acc[i][c] / denom;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((int64_t)b * a.H + h) * a.Sq + qi] = m_i[i] + logf(denom);
   }
 }
 
-template <int HD>
+template <int HD, bool WIDE>
 int launch(const FaArgs& a, int B, cudaStream_t stream) {
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<HD, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
-  flash_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_f32<HD, WIDE><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -267,95 +286,39 @@ int launch(const FaArgs& a, int B, cudaStream_t stream) {
 namespace bf16 {
 
 using bf16_t = __nv_bfloat16;
+using fa::cp_async_16;
+using fa::cp_async_commit;
+using fa::cp_async_wait;
+using fa::ex2;
+using fa::kLog2e;
+using fa::ldsm_x4;
+using fa::ldsm_x4_trans;
+using fa::mma;
+using fa::pack;
+using fa::smem_u32;
 
 constexpr int kStages = 2;         // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool WIDE>
 struct Tile {
   static constexpr int kWarps = 4;
-  static constexpr int MT = HD == 128 && !CAP ? 2 : 1;   // m16 tiles a warp
+  static constexpr int MT = HD == 128 && !CAP && !WIDE ? 2 : 1;  // m16 tiles
   static constexpr int kBQ = 16 * MT * kWarps;     // q rows a CTA
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int BK = HD == 256 ? 32 : 64;   // kv rows per tile
-  static constexpr bool kQInRegs = MT == 1 && HD <= 128;
+  static constexpr bool kQInRegs = !WIDE && MT == 1 && HD <= 128;
   static constexpr int LDS = HD + 8;               // padded row, in bf16
   static constexpr int smem_bytes =
       (kBQ + 2 * kStages * BK) * LDS * (int)sizeof(bf16_t);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 B global -> shared, bypassing L1; src_size 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-               "{%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
-}
-
-// two floats -> bf16x2, round to nearest even; lo in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit; every argument here is <= 0, where
-// the result is exp2f's (1 for 0, 0 for the -1e30 sentinel's differences)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16: a[0] (row g, k 2t..2t+1), a[1] (row g+8, same k),
-//            a[2] (row g, k 2t+8..), a[3] (row g+8, k 2t+8..);
-//   B 16x8:  b0 (k 2t..2t+1, col g), b1 (k 2t+8.., col g);
-//   C 16x8:  c[0..1] (row g, col 2t..2t+1), c[2..3] (row g+8, same cols).
-// ldmatrix.x4: lanes 8i..8i+7 address the rows of 8x8 matrix i, which lands
-// in register i (row g, cols 2t..2t+1; .trans: col g, rows 2t..2t+1).
-// A warp owns MT m16 row tiles: each K and V fragment feeds MT products.
-template <int HD, bool CAP>
-__global__ void __launch_bounds__(Tile<HD, CAP>::kThreads)
+// (Fragment layouts: fa_common.cuh.)  A warp owns MT m16 row tiles: each K
+// and V fragment feeds MT products.  LSE: whether the launch may write lse
+// (a template flag, so that serving runs the code it ran before lse).
+template <int HD, bool CAP, bool WIDE, bool LSE>
+__global__ void __launch_bounds__(Tile<HD, CAP, WIDE>::kThreads)
 flash_fwd_bf16(const FaArgs a) {
-  using T = Tile<HD, CAP>;
+  using T = Tile<HD, CAP, WIDE>;
   constexpr int BK = T::BK, LDS = T::LDS, kBQ = T::kBQ, MT = T::MT;
   constexpr int kThreads = T::kThreads;
   constexpr int WR = 16 * MT;       // rows a warp
@@ -378,26 +341,47 @@ flash_fwd_bf16(const FaArgs a) {
                      + h * a.qs[1];
   const bf16_t* kp = static_cast<const bf16_t*>(a.k) + b * a.ks[0]
                      + kvh * a.ks[1];
+  const int c0 = WIDE ? a.c0 : 0;   // this launch's output columns
   const bf16_t* vp = static_cast<const bf16_t*>(a.v) + b * a.vs[0]
-                     + kvh * a.vs[1];
-  bf16_t* op = static_cast<bf16_t*>(a.o) + b * a.os[0] + h * a.os[1];
+                     + kvh * a.vs[1] + c0;
+  bf16_t* op = static_cast<bf16_t*>(a.o) + b * a.os[0] + h * a.os[1] + c0;
 
   // a thread copies 16-B chunk cc of rows r0, r0 + RP, ...
   constexpr int RP = kThreads / CH;
   static_assert(kThreads % CH == 0 && BK % RP == 0 && kBQ % RP == 0, "");
   const int r0 = tid / CH, cc = tid % CH;
 
-  // Q once per CTA, rows past Sq zero-filled
-  for (int r = r0; r < kBQ; r += RP) {
-    const bool ok = q0 + r < a.Sq;
-    cp_async_16(smem_u32(Qs + r * LDS + cc * 8),
-                qp + (ok ? (int64_t)(q0 + r) * a.qs[2] : 0) + cc * 8, ok);
-  }
-  cp_async_commit();
-
-  int kt_begin, kt_end;
-  kv_range(a, q0, kBQ, BK, &kt_begin, &kt_end);
-
+  // Q's columns [col, col + HD), rows past Sq and columns past hd zero
+  auto load_q = [&](int col) {
+    const bool in = !WIDE || col + cc * 8 < a.hd;
+    for (int r = r0; r < kBQ; r += RP) {
+      const bool ok = in && q0 + r < a.Sq;
+      cp_async_16(smem_u32(Qs + r * LDS + cc * 8),
+                  qp + (ok ? (int64_t)(q0 + r) * a.qs[2] + col : 0) + cc * 8,
+                  ok);
+    }
+  };
+  // K's columns [col, col + HD) into stage st
+  auto load_k = [&](int kt, int st, int col) {
+    const int k0 = kt * BK;
+    const bool in = !WIDE || col + cc * 8 < a.hd;
+    for (int r = r0; r < BK; r += RP) {
+      const bool ok = in && k0 + r < a.Skv;
+      const int64_t row = ok ? k0 + r : 0;
+      cp_async_16(smem_u32(Ks + (st * BK + r) * LDS + cc * 8),
+                  kp + (ok ? row * a.ks[2] + col : 0) + cc * 8, ok);
+    }
+  };
+  auto load_v = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    for (int r = r0; r < BK; r += RP) {
+      const bool ok = k0 + r < a.Skv;
+      const int64_t row = ok ? k0 + r : 0;
+      cp_async_16(smem_u32(Vs + (st * BK + r) * LDS + cc * 8),
+                  vp + row * a.vs[2] + cc * 8, ok);
+    }
+  };
+  // K and V's tile kt into stage st, one head-dim-wide load of each
   auto load_kv = [&](int kt, int st) {
     const int k0 = kt * BK;
     for (int r = r0; r < BK; r += RP) {
@@ -408,19 +392,23 @@ flash_fwd_bf16(const FaArgs a) {
       cp_async_16(smem_u32(Vs + at), vp + row * a.vs[2] + cc * 8, ok);
     }
   };
-  if (kt_begin < kt_end) load_kv(kt_begin, 0);
-  cp_async_commit();
 
-  // per-lane ldmatrix addresses: Q as A (rows lane % 16, k half lane / 16);
-  // K as B of S (keys lane % 8 + 8 (lane / 16), k half (lane / 8) % 2);
-  // V as B of P.V, transposed (keys lane % 8 + 8 ((lane / 8) % 2), cols
-  // half lane / 16)
-  const uint32_t q_lane =
-      smem_u32(Qs + (WR * w + (lane & 15)) * LDS + (lane >> 4) * 8);
-  const uint32_t k_lane = smem_u32(
-      Ks + ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8);
-  const uint32_t v_lane = smem_u32(
-      Vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDS + (lane >> 4) * 8);
+  int kt_begin, kt_end;
+  fa::kv_range(a.Sq, a.Skv, a.causal, a.window, q0, kBQ, BK, &kt_begin,
+               &kt_end);
+  if constexpr (!WIDE) {
+    // Q once per CTA, then the first K/V tile
+    load_q(0);
+    cp_async_commit();
+    if (kt_begin < kt_end) load_kv(kt_begin, 0);
+    cp_async_commit();
+  }
+
+  // per-lane ldmatrix addresses: Q as A, K as B of S = Q.K^T, V as B of
+  // P.V (transposed)
+  const uint32_t q_lane = fa::lane_a(Qs + WR * w * LDS, LDS, lane);
+  const uint32_t k_lane = fa::lane_b(Ks, LDS, lane);
+  const uint32_t v_lane = fa::lane_t(Vs, LDS, lane);
 
   uint32_t qf[T::kQInRegs ? HD / 16 : 1][4];
   if constexpr (T::kQInRegs) {
@@ -447,27 +435,8 @@ flash_fwd_bf16(const FaArgs a) {
   const int qw = q0 + WR * w;        // the warp's first row
   const float sl2 = a.scale * kLog2e;
 
-  int st = 0;
-  for (int kt = kt_begin; kt < kt_end; ++kt, st ^= 1) {
-    if (kt + 1 < kt_end) {
-      load_kv(kt + 1, st ^ 1);       // read by the last tile, synced below
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = kt * BK;
-    const uint32_t k_st = k_lane + st * BK * ROW;
-    const uint32_t v_st = v_lane + st * BK * ROW;
-
-    // S = Q . K^T, float32
-    float s[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+  // s += Q.K^T over the HD columns in shared memory (K in stage at k_st)
+  auto qk = [&](float (&s)[MT][NT][4], uint32_t k_st) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t qa[MT][4];
@@ -490,6 +459,47 @@ flash_fwd_bf16(const FaArgs a) {
           mma(s[mt][2 * np + 1], qa[mt], kb[2], kb[3]);
         }
       }
+    }
+  };
+
+  int st = 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt, st ^= 1) {
+    const int k0 = kt * BK;
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+    uint32_t v_st;
+    if constexpr (WIDE) {
+      // each q.k chunk of Q and K, then V's slice, all in stage 0
+      for (int ch = 0; ch < a.nch; ++ch) {
+        __syncthreads();             // the last chunk (or tile) is consumed
+        load_q(ch * HD);
+        load_k(kt, 0, ch * HD);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        qk(s, k_lane);
+      }
+      __syncthreads();
+      load_v(kt, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      v_st = v_lane;
+    } else {
+      if (kt + 1 < kt_end) {
+        load_kv(kt + 1, st ^ 1);     // read by the last tile, synced below
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      qk(s, k_lane + st * BK * ROW);
+      v_st = v_lane + st * BK * ROW;
     }
 
     // scale (softcap), fold log2(e); mask only the straddling tiles
@@ -569,12 +579,8 @@ flash_fwd_bf16(const FaArgs a) {
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
+      for (int mt = 0; mt < MT; ++mt)
+        fa::c_to_a(pa[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         uint32_t vb[4];
@@ -592,7 +598,8 @@ flash_fwd_bf16(const FaArgs a) {
   __syncthreads();                   // and its rows are other threads' loads
 
   // epilogue: full row sums, O / max(l, 1e-30) in bf16 through the warp's
-  // own Q rows, then 16-B stores of the rows < Sq
+  // own Q rows, then 16-B stores of the rows < Sq; lse by the quad's first
+  // thread
   bf16_t* Os = Qs + WR * w * LDS;
   __syncwarp();
 #pragma unroll
@@ -603,7 +610,14 @@ flash_fwd_bf16(const FaArgs a) {
       float sum = l[mt][r];
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      inv[r] = 1.f / fmaxf(sum, 1e-30f);
+      const float denom = fmaxf(sum, 1e-30f);
+      inv[r] = 1.f / denom;
+      const int qi = qw + 16 * mt + g + 8 * r;
+      // (b, h) re-read from the grid: kept live through the loop, they
+      // would cost the hd = 128 tile its last registers
+      if (LSE && a.lse != nullptr && t == 0 && qi < a.Sq)
+        a.lse[((int64_t)blockIdx.z * a.H + blockIdx.y) * a.Sq + qi] =
+            (m[mt][r] + log2f(denom)) * fa::kLn2;
     }
     bf16_t* row = Os + (16 * mt + g) * LDS + 2 * t;
 #pragma unroll
@@ -623,31 +637,52 @@ flash_fwd_bf16(const FaArgs a) {
   }
 }
 
-template <int HD, bool CAP>
-int launch_cap(const FaArgs& a, int B, cudaStream_t stream) {
-  using T = Tile<HD, CAP>;
+template <int HD, bool CAP, bool WIDE, bool LSE>
+int launch_lse(const FaArgs& a, int B, cudaStream_t stream) {
+  using T = Tile<HD, CAP, WIDE>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::smem_bytes);
+      flash_fwd_bf16<HD, CAP, WIDE, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + T::kBQ - 1) / T::kBQ, a.H, B);
-  flash_fwd_bf16<HD, CAP><<<grid, T::kThreads, T::smem_bytes, stream>>>(a);
+  flash_fwd_bf16<HD, CAP, WIDE, LSE>
+      <<<grid, T::kThreads, T::smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+// a WIDE slice always takes the lse flag (only the first passes a buffer)
+template <int HD, bool CAP, bool WIDE>
+int launch_cap(const FaArgs& a, int B, cudaStream_t stream) {
+  if (WIDE || a.lse != nullptr)
+    return launch_lse<HD, CAP, WIDE, true>(a, B, stream);
+  return launch_lse<HD, CAP, WIDE, WIDE>(a, B, stream);
+}
+
+template <int HD, bool WIDE>
 int launch(const FaArgs& a, int B, cudaStream_t stream) {
-  return a.softcap > 0.f ? launch_cap<HD, true>(a, B, stream)
-                         : launch_cap<HD, false>(a, B, stream);
+  return a.softcap > 0.f ? launch_cap<HD, true, WIDE>(a, B, stream)
+                         : launch_cap<HD, false, WIDE>(a, B, stream);
 }
 
 }  // namespace bf16
 
-template <int HD>
+template <int HD, bool WIDE>
 int launch(const FaArgs& a, int dtype, int B, cudaStream_t stream) {
-  if (dtype == 0) return f32::launch<HD>(a, B, stream);
-  if (dtype == 1) return bf16::launch<HD>(a, B, stream);
+  if (dtype == 0) return f32::launch<HD, WIDE>(a, B, stream);
+  if (dtype == 1) return bf16::launch<HD, WIDE>(a, B, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool WIDE>
+int launch_width(const FaArgs& a, int w, int dtype, int B,
+                 cudaStream_t s) {
+  switch (w) {
+    case 32: return launch<32, WIDE>(a, dtype, B, s);
+    case 64: return launch<64, WIDE>(a, dtype, B, s);
+    case 128: return launch<128, WIDE>(a, dtype, B, s);
+    case 256: return launch<256, WIDE>(a, dtype, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -656,18 +691,20 @@ extern "C" {
 
 // q (B, H, Sq, hd), k/v (B, KV, Skv, hd), o (B, H, Sq, hd), all of one type
 // (dtype 0: float32, CUDA-core kernel; 1: bfloat16, tensor-core kernel),
-// hd contiguous.  strides: 12 int64, the (b, h, s) strides of q, k, v and o
+// hd contiguous; hd 32, 64, 128, 256, or above 256 a multiple of 32 (one
+// launch per slice of built width).  lse: float32 (B, H, Sq) contiguous, or
+// null for none.  strides: 12 int64, the (b, h, s) strides of q, k, v and o
 // in elements; for bfloat16 every pointer 16-B aligned and every stride a
 // multiple of 8.  window <= 0: none; softcap <= 0: none.  Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the (last) launch, or the first error.
 int fa_forward(const void* q, const void* k, const void* v, void* o,
-               int dtype, int B, int H, int KV, int Sq, int Skv, int hd,
-               const int64_t* strides, float scale, int causal, int window,
-               float softcap, void* stream) {
+               float* lse, int dtype, int B, int H, int KV, int Sq, int Skv,
+               int hd, const int64_t* strides, float scale, int causal,
+               int window, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0) return (int)cudaSuccess;
   FaArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
-  a.H = H; a.KV = KV; a.Sq = Sq; a.Skv = Skv;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.H = H; a.KV = KV; a.Sq = Sq; a.Skv = Skv; a.hd = hd;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -676,13 +713,24 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
   }
   a.scale = scale; a.softcap = softcap; a.causal = causal; a.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch<32>(a, dtype, B, s);
-    case 64: return launch<64>(a, dtype, B, s);
-    case 128: return launch<128>(a, dtype, B, s);
-    case 256: return launch<256>(a, dtype, B, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (hd <= fa::kMaxSlice) {
+    if (hd != 32 && hd != 64 && hd != 128 && hd != 256)
+      return (int)cudaErrorInvalidValue;
+    a.c0 = 0;
+    a.nch = 1;
+    return launch_width<false>(a, hd, dtype, B, s);
   }
+  if (hd % 32) return (int)cudaErrorInvalidValue;
+  for (int c0 = 0; c0 < hd;) {
+    const int w = fa::next_slice(hd - c0, fa::kMaxSlice);
+    a.c0 = c0;
+    a.nch = (hd + w - 1) / w;
+    a.lse = c0 == 0 ? lse : nullptr;
+    const int err = launch_width<true>(a, w, dtype, B, s);
+    if (err) return err;
+    c0 += w;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

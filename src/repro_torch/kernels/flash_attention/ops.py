@@ -1,38 +1,43 @@
-"""Device dispatch for the flash-attention kernel.
+"""Device dispatch for the flash-attention kernels.
 
-A CUDA tensor goes to the hand-written kernel (which raises if it cannot
+A CUDA tensor goes to the hand-written kernels (which raise if they cannot
 build, launch or take the shapes) through :class:`KernelAttention`, which
-gives it a gradient; a CPU tensor goes to the plain version under plain
-autograd.  The choice follows the tensor's device and nothing else; the
-JAX op's ``interpret=``, ``use_kernel=`` and block-size switches have no
+gives the forward kernel its gradient; a CPU tensor goes to the plain
+version under plain autograd, the gradient the reference trains with.  The
+choice follows the tensor's device and nothing else; the JAX op's
+``interpret=``, ``use_kernel=`` and block-size switches have no
 counterpart.
 
-The gradient on the card is the VJP of the plain version, recomputed from
-the saved q, k and v in the backward pass: the JAX package has no backward
-kernel, and its training forward differentiates its jnp attention, so this
-is the gradient the reference trains with.  Two divergences follow: in
-bfloat16 the forward kernel rounds P to bfloat16 before P·V and the
-recomputed backward does not, so the gradient is that of a forward a
-rounding away from the one the loss saw; and each backward costs one more
-float32 attention forward (counted in ``RECOMPUTES``).
+The gradient on the card is the backward kernel's (the FlashAttention-2
+split, ``csrc/flash_attention_bwd.cu``): the forward saves q, k, v, its
+output and each row's log-sum-exp, and the backward recomputes P tile by
+tile from them, so no (Sq, Skv) score matrix is held in either direction.
+In bfloat16 the forward rounds P before P·V and the backward rounds P and
+dS before their products, each within the bf16 limits the tests and
+``chip_smoke.py`` phase 5 hold it to; in float32 both run in full float32.
+A call without gradients (serving, under ``torch.no_grad``) takes the
+forward alone and writes no log-sum-exp.
 
-The kernel is reached through ``ctypes``, which no fake, meta or
-``DTensor`` argument can pass, so its forward is the custom op
-``repro_torch::flash_attention`` (:func:`flash_attention_op`): its CUDA
-implementation launches the kernel, its fake implementation gives the
-output's shape, dtype and strides (the dry run's meta tensors take it),
-and its ``DTensor`` sharding rule keeps batch-sharded or head-sharded
-inputs as they are and gives the output their sharding; DTensor
-redistributes other inputs to one of those first.  Head sharding is
-offered only with more than one kv head, so a query head never lands
-apart from its kv head.  On DTensors the backward runs the twin's VJP
-shard by shard in the layout the kernel ran in (:mod:`.._spmd`).
+The kernels are reached through ``ctypes``, which no fake, meta or
+``DTensor`` argument can pass, so each is a custom op: the forward
+``repro_torch::flash_attention`` (:func:`flash_attention_op`), the forward
+that also returns the log-sum-exp ``repro_torch::flash_attention_lse``
+(:func:`flash_attention_lse_op`) and the backward
+``repro_torch::flash_attention_backward`` (:func:`flash_attention_backward_op`).
+Each op's CUDA implementation launches its kernel, its fake implementation
+gives the outputs' shapes, dtypes and strides (the dry run's meta tensors
+take it), and its ``DTensor`` sharding rule keeps batch-sharded or
+head-sharded inputs as they are and gives the outputs their sharding;
+DTensor redistributes other inputs to one of those first.  Head sharding
+is offered only with more than one kv head, so a query head never lands
+apart from its kv head.  On DTensors the backward runs shard by shard in
+the layout the forward ran in (:mod:`.._spmd`).
 
-The kernel is instantiated for the head dims in ``HEAD_DIMS`` (32, 64,
-128, 256), where the reference's Pallas kernel takes any.  A CUDA or meta
-tensor of another head dim up to 256 (16 in every reduced config) goes
-through :func:`pad_to_kernel`: q, k and v zero-padded on their last axis
-to :func:`padded_head_dim`, the scale of the unpadded width passed, the
+The kernels take the head dims in ``HEAD_DIMS`` (32, 64, 128, 256) and any
+multiple of 32 above 256 (split into slices of those).  A CUDA or meta
+tensor of another head dim (16 in every reduced config) goes through
+:func:`pad_to_kernel`: q, k and v zero-padded on their last axis to
+:func:`padded_head_dim`, the scale of the unpadded width passed, the
 output sliced back.  Zero columns add nothing to q·k, and the padded
 columns of P·V are dropped, so the values are the kernel's at the padded
 width; the gradient flows through the pad and the slice.
@@ -41,7 +46,7 @@ width; the gradient flows through the pad and the slice.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -49,7 +54,6 @@ from torch.distributed.tensor.experimental import register_sharding
 
 from ...pjit_utils import mesh_of
 from .. import _spmd
-from .._build import count_launch
 from . import flash_attention as _k
 from .ref import attention_ref
 
@@ -71,29 +75,99 @@ def _flash_attention_fake(q, k, v, causal, window, softcap, scale):
     return q.new_empty((B, Sq, H, hd)).transpose(1, 2)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_lse",
+                         mutates_args=())
+def flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool,
+                           window: Optional[int], softcap: float,
+                           scale: Optional[float]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward that also returns each row's log-sum-exp, float32
+    (B, H, Sq): what :class:`KernelAttention` runs when a gradient is
+    wanted."""
+    return _k.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale, return_lse=True)
+
+
+@flash_attention_lse_op.register_fake
+def _flash_attention_lse_fake(q, k, v, causal, window, softcap, scale):
+    B, H, Sq, hd = q.shape
+    return (q.new_empty((B, Sq, H, hd)).transpose(1, 2),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def flash_attention_backward_op(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, dout: torch.Tensor,
+                                causal: bool, window: Optional[int],
+                                softcap: float, scale: Optional[float]
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The backward kernel as a custom op: (dq, dk, dv) from the forward's
+    inputs, output and log-sum-exp and the output's cotangent."""
+    return _k.flash_attention_backward(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+
+
+@flash_attention_backward_op.register_fake
+def _flash_attention_backward_fake(q, k, v, out, lse, dout, causal, window,
+                                   softcap, scale):
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    return (q.new_empty((B, Sq, H, hd)).transpose(1, 2),
+            k.new_empty((B, Skv, KV, hd)).transpose(1, 2),
+            v.new_empty((B, Skv, KV, hd)).transpose(1, 2))
+
+
+def _layouts(kv_heads: int):
+    """The placements every flash op keeps on one mesh axis: replicated,
+    batch-sharded, and (with more than one kv head) head-sharded (q on H,
+    k and v on KV; the log-sum-exp on H)."""
+    out = [Replicate(), Shard(0)]
+    if kv_heads > 1:
+        out.append(Shard(1))
+    return out
+
+
 @register_sharding(torch.ops.repro_torch.flash_attention.default)
 def _flash_attention_sharding(q, k, v, causal, window, softcap, scale):
-    """(output, inputs) placements on one mesh axis: replicated, batch-
-    sharded, or head-sharded (q on H, k and v on KV)."""
+    """(output, inputs) placements on one mesh axis."""
     rest = [None] * 4
-    rules = [([Replicate()], [Replicate()] * 3 + rest),
-             ([Shard(0)], [Shard(0)] * 3 + rest)]
-    if k.shape[1] > 1:
-        rules.append(([Shard(1)], [Shard(1)] * 3 + rest))
-    return rules
+    return [([p], [p] * 3 + rest) for p in _layouts(k.shape[1])]
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_lse.default)
+def _flash_attention_lse_sharding(q, k, v, causal, window, softcap, scale):
+    rest = [None] * 4
+    return [([p, p], [p] * 3 + rest) for p in _layouts(k.shape[1])]
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_backward.default)
+def _flash_attention_backward_sharding(q, k, v, out, lse, dout, causal,
+                                       window, softcap, scale):
+    rest = [None] * 4
+    return [([p] * 3, [p] * 6 + rest) for p in _layouts(k.shape[1])]
 
 
 class KernelAttention(torch.autograd.Function):
-    """Forward: the CUDA kernel, through :func:`flash_attention_op`.
-    Backward: the VJP of :func:`~.ref.attention_ref` at the saved
-    inputs."""
+    """Forward: the CUDA kernel, through :func:`flash_attention_lse_op`
+    when a gradient is wanted (else :func:`flash_attention_op`, no
+    log-sum-exp).  Backward: the backward kernel, through
+    :func:`flash_attention_backward_op`, from the saved inputs, output and
+    log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
-                        scale=scale)
-        ctx.save_for_backward(q, k, v)
-        out = flash_attention_op(q, k, v, causal, window, softcap, scale)
+        ctx.opts = (causal, window, softcap, scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_op(q, k, v, causal, window, softcap,
+                                      scale)
+        out, lse = flash_attention_lse_op(q, k, v, causal, window, softcap,
+                                          scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         # on DTensors: the layout the sharding rule ran the kernel in
         ctx.mesh = mesh_of(out)
         ctx.layout = out.placements if ctx.mesh is not None else None
@@ -101,32 +175,25 @@ class KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        count_launch(_k.RECOMPUTES, "flash_attention")
-        need = ctx.needs_input_grad[:3]
         saved = list(ctx.saved_tensors)
         if ctx.mesh is not None:     # shard by shard, in the forward's layout
-            saved = _spmd.to_locals(saved, ctx.mesh, [ctx.layout] * 3)
+            saved = _spmd.to_locals(saved, ctx.mesh, [ctx.layout] * 5)
             grad = _spmd.to_locals([grad], ctx.mesh, [ctx.layout])[0]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(saved, need)]
-            out = attention_ref(*inputs, **ctx.opts)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(inputs, need) if n], grad))
-            grads = [next(grads) if n else None for n in need]
+        grads = list(flash_attention_backward_op(*saved, grad, *ctx.opts))
+        grads = [g if n else None
+                 for g, n in zip(grads, ctx.needs_input_grad[:3])]
         if ctx.mesh is not None:
             grads = _spmd.from_locals(grads, ctx.mesh, [ctx.layout] * 3)
         return (*grads, None, None, None, None)
 
 
 def padded_head_dim(d: int) -> int:
-    """The smallest head dim the kernel is instantiated for that holds
-    ``d``; ``ValueError`` past the largest."""
+    """The smallest head dim the kernels take that holds ``d``: the next
+    built one up to 256, above it the next multiple of 32."""
     for hd in _k.HEAD_DIMS:
         if hd >= d:
             return hd
-    raise ValueError(f"head dim {d}: the flash-attention kernel takes at "
-                     f"most {_k.HEAD_DIMS[-1]}")
+    return -(-d // 32) * 32
 
 
 def pad_to_kernel(attend, q: torch.Tensor, k: torch.Tensor,
@@ -148,11 +215,9 @@ def pad_to_kernel(attend, q: torch.Tensor, k: torch.Tensor,
 def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool, window: Optional[int], softcap: float,
                      scale: Optional[float]) -> torch.Tensor:
-    """The kernel's route: :class:`KernelAttention` on a head dim of
-    ``HEAD_DIMS`` (or past 256, which the launcher refuses), through
-    :func:`pad_to_kernel` on any other."""
-    hd = q.shape[-1]
-    if hd in _k.HEAD_DIMS or hd > _k.HEAD_DIMS[-1]:
+    """The kernel's route: :class:`KernelAttention` on a head dim the
+    kernels take, through :func:`pad_to_kernel` on any other."""
+    if _k.kernel_takes_head_dim(q.shape[-1]):
         return KernelAttention.apply(q, k, v, causal, window, softcap, scale)
     return pad_to_kernel(KernelAttention.apply, q, k, v, causal, window,
                          softcap, scale)
@@ -163,8 +228,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               softcap: float = 0.0,
               scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,H,S,hd); k/v: (B,KV,S,hd) → (B,H,S,hd) in q's dtype.  CUDA
-    and meta tensors take the kernel's custom op (meta: its shapes only)
-    through :func:`kernel_attention`; CPU tensors the plain version."""
+    and meta tensors take the kernels' custom ops (meta: their shapes
+    only) through :func:`kernel_attention`; CPU tensors the plain
+    version."""
     if q.device.type in ("cuda", "meta"):
         return kernel_attention(q, k, v, causal, window, softcap, scale)
     if q.device.type == "cpu":

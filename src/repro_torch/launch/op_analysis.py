@@ -36,7 +36,8 @@ from typing import Dict, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..kernels.cost import flash_attention_cost, ssd_scan_cost
+from ..kernels.cost import (flash_attention_bwd_cost, flash_attention_cost,
+                            ssd_scan_cost)
 
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute")
@@ -119,11 +120,16 @@ def _mm_flops(func, args) -> float:
 
 
 def _kernel_cost(name: str, args) -> tuple:
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         q, k = args[0], args[1]
         B, H, Sq, hd = q.shape
-        return flash_attention_cost(B, H, k.shape[1], Sq, k.shape[2], hd,
-                                    args[3], args[4], q.element_size())
+        shape = (B, H, k.shape[1], Sq, k.shape[2], hd)
+        if name == "flash_attention_backward":
+            return flash_attention_bwd_cost(*shape, args[6], args[7],
+                                            q.element_size())
+        return flash_attention_cost(*shape, args[3], args[4],
+                                    q.element_size(),
+                                    lse=name == "flash_attention_lse")
     x, dt, Bm = args[0], args[1], args[3]
     B, T, H, P = x.shape
     return ssd_scan_cost(B, T, H, P, Bm.shape[-1], args[5],

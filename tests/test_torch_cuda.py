@@ -507,7 +507,7 @@ def test_cuda_lm_launch_counters(cuda):
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     fa.flash_attention(q, q, q)
     ss.ssd_scan(*_ssd_inputs(cuda, 1, 32, 2, 16, 16, torch.float32), 16)
-    assert fa.LAUNCHES == {"flash_attention": 1}
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 0}
     assert ss.LAUNCHES == {"ssd_scan": 1}
 
 
@@ -939,7 +939,7 @@ from repro_torch.launch import steps as TS  # noqa: E402
 
 
 def _vjp_close(got, want):
-    """The Function's backward recomputes the plain twin at the same
+    """The SSD Function's backward recomputes the plain twin at the same
     inputs: the same computation, so only a run-to-run reduction order
     could separate them."""
     for a, b in zip(got, want):
@@ -948,8 +948,29 @@ def _vjp_close(got, want):
                                    atol=1e-5 * float(b.abs().max()))
 
 
+#: the flash backward kernel against the twin's VJP, max abs err over max
+#: |grad|: float32 sums in other orders; bf16 also rounds P and dS before
+#: their products (and relative RMS <= 1e-2), phase 5's limits
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _kernel_grads_close(got, want, dtype):
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        assert bool(torch.isfinite(a).all()) and scale > 0
+        err = float((a.float() - b.float()).abs().max()) / scale
+        assert err <= FA_BWD_TOL[dtype], err
+        if dtype == torch.bfloat16:
+            rms = torch.linalg.vector_norm(a.double() - b.double()) / \
+                torch.linalg.vector_norm(b.double())
+            assert float(rms) <= 1e-2, float(rms)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_gradient_is_the_twins_vjp(cuda, dtype):
+    """The dispatcher's gradient on the card is the backward kernel's (one
+    launch, no recompute through the twin), within phase 5's limits of
+    the twin's VJP."""
     g = torch.Generator(device=cuda).manual_seed(3)
     ins = [torch.randn(shape, generator=g, device=cuda).to(dtype)
            .requires_grad_() for shape in ((2, 4, 80, 32), (2, 2, 80, 32),
@@ -961,9 +982,112 @@ def test_cuda_flash_attention_gradient_is_the_twins_vjp(cuda, dtype):
     got = torch.autograd.grad(out, ins, cot)
     want = torch.autograd.grad(attention_ref(*ins, causal=True, window=24),
                                ins, cot)
-    _vjp_close(got, want)
-    assert fa.LAUNCHES["flash_attention"] == 1
-    assert fa.RECOMPUTES["flash_attention"] == 1
+    _kernel_grads_close(got, want, dtype)
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1}
+    assert fa.RECOMPUTES["flash_attention"] == 0
+
+
+FA_BWD_SHAPES = [
+    # (B, H, KV, Sq, Skv, hd, causal, window, softcap): a window with a
+    # softcap, MQA group 16 at hd 256, cross lengths (Sq != Skv,
+    # non-causal), ragged q and kv tails, hd 32 and 64, and head dims above
+    # 256 (320, 512)
+    (1, 2, 2, 130, 130, 128, True, 40, 30.0),
+    (1, 4, 2, 100, 100, 64, True, 24, 50.0),
+    (2, 16, 1, 160, 160, 256, True, 64, 0.0),
+    (1, 16, 1, 70, 70, 256, False, None, 20.0),
+    (2, 4, 4, 70, 200, 64, False, None, 0.0),
+    (1, 4, 2, 200, 90, 32, True, None, 0.0),
+    (1, 2, 1, 33, 97, 128, False, None, 0.0),
+    (1, 4, 2, 130, 130, 320, True, None, 0.0),
+    (1, 4, 2, 96, 96, 512, True, 50, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", FA_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_matches_twins_vjp(cuda, case, dtype):
+    """The backward kernel from the forward kernel's output and lse,
+    against the twin's VJP, on strided (B, H, S, hd) views of (B, S, H, hd)
+    buffers; two calls bit-equal."""
+    B, H, KV, Sq, Skv, hd, causal, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + hd)
+    q, k, v, dout = (torch.randn((B, S, n, hd), generator=g, device=cuda)
+                     .to(dtype).transpose(1, 2)
+                     for S, n in ((Sq, H), (Skv, KV), (Skv, KV), (Sq, H)))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = fa.flash_attention(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(
+        out.float(), attention_ref(q, k, v, **kw).float(),
+        **({"atol": 3e-5, "rtol": 3e-5} if dtype == torch.float32 else
+           {"atol": 2e-2, "rtol": 2e-2}))
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b, like in zip(got, again, (q, k, v)):
+        assert torch.equal(a, b)
+        assert a.shape == like.shape and a.dtype == dtype
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ins, **kw), ins, dout)
+    _kernel_grads_close(got, want, dtype)
+
+
+def test_cuda_flash_backward_fake_op_matches_the_kernel(cuda):
+    """The backward op's fake implementation on meta tensors gives the
+    shapes, dtypes and strides the kernel's gradients have."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q, k, v, dout = (torch.randn((2, 64, n, 64), generator=g, device=cuda)
+                     .bfloat16().transpose(1, 2) for n in (4, 2, 2, 4))
+    out, lse = fa_ops.flash_attention_lse_op(q, k, v, True, None, 0.0, None)
+    got = fa_ops.flash_attention_backward_op(q, k, v, out, lse, dout, True,
+                                             None, 0.0, None)
+    meta = [t.to("meta") for t in (q, k, v, out, lse, dout)]
+    fake = fa_ops.flash_attention_backward_op(*meta, True, None, 0.0, None)
+    for a, b in zip(got, fake):
+        assert (a.shape, a.dtype, a.stride()) == (b.shape, b.dtype,
+                                                  b.stride())
+    fo, fl = fa_ops.flash_attention_lse_op(*meta[:3], True, None, 0.0, None)
+    assert (fo.stride(), fl.shape, fl.dtype) == (out.stride(), lse.shape,
+                                                 lse.dtype)
+
+
+def test_cuda_flash_backward_on_a_one_rank_dtensor(cuda, tmp_path):
+    """q, k and v as DTensors on a real (1, 1) mesh of a one-rank NCCL
+    world, batch- and head-sharded: the gradient through the dispatcher is
+    a DTensor in the inputs' layout and equals the plain tensors' (one
+    forward and one backward launch each)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    g = torch.Generator(device=cuda).manual_seed(37)
+    q, k, v, dout = (torch.randn((2, n, 96, 64), generator=g, device=cuda)
+                     .bfloat16() for n in (4, 2, 2, 4))
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    want = torch.autograd.grad(fa_ops.attention(*ins, causal=True), ins,
+                               dout)
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        lay = [Shard(0), Shard(1)]
+        dins = [distribute_tensor(t, mesh, lay).requires_grad_()
+                for t in (q, k, v)]
+        fa.reset_launches()
+        out = fa_ops.attention(*dins, causal=True)
+        got = torch.autograd.grad(out, dins,
+                                  distribute_tensor(dout, mesh, lay))
+        launched = dict(fa.LAUNCHES)
+        for a in got:
+            assert isinstance(a, DTensor) and tuple(a.placements) == \
+                tuple(lay)
+        got = [a.full_tensor() for a in got]
+    finally:
+        dist.destroy_process_group()
+    assert launched == {"flash_attention": 1, "flash_attention_bwd": 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -989,7 +1113,8 @@ def test_cuda_train_forward_gives_kernel_only_leaves_gradients(cuda, arch):
     get nonzero gradients, every leaf's gradient is close to the same
     weights' on the CPU (float32: the kernels' forward within 3e-5 and
     1e-4 of the twins'), and each layer launched its kernel twice under
-    remat with one backward recompute."""
+    remat with one backward (flash: the backward kernel, no recompute
+    through the twin; SSD: the twin's recompute)."""
     import dataclasses
     cfg = reduced(get_config(arch))
     if cfg.ssd is None:
@@ -1015,9 +1140,14 @@ def test_cuda_train_forward_gives_kernel_only_leaves_gradients(cuda, arch):
         assert bool(torch.isfinite(a).all()), p
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         assert rel <= 1e-3, (p, rel)
-    mod, name = (ss, "ssd_scan") if cfg.ssd else (fa, "flash_attention")
-    assert (mod.LAUNCHES[name], mod.RECOMPUTES[name]) == \
-        (2 * cfg.num_layers, cfg.num_layers)
+    n = cfg.num_layers
+    if cfg.ssd:
+        assert (ss.LAUNCHES["ssd_scan"], ss.RECOMPUTES["ssd_scan"]) == (2 * n,
+                                                                        n)
+    else:
+        assert fa.LAUNCHES == {"flash_attention": 2 * n,
+                               "flash_attention_bwd": n}
+        assert fa.RECOMPUTES["flash_attention"] == 0
 
 
 def test_cuda_agent_matches_a_cpu_agent(cuda):
@@ -1213,8 +1343,9 @@ def test_cuda_train_step_matches_the_cpu(cuda, arch):
     global layers) on the card against the same weights on the CPU: the
     loss within 1e-4, every gradient leaf within 1e-3 of the CPU leaf's
     norm, the leaves reached only through the kernel nonzero, two flash
-    launches and one recompute per attention layer under remat, and the
-    donated step's parameters within 1e-3 of the CPU step's."""
+    launches and one backward launch per attention layer under remat (no
+    recompute through the twin), and the donated step's parameters within
+    1e-3 of the CPU step's."""
     import dataclasses
     cfg = reduced(get_config(arch))
     if cfg.mla is None:
@@ -1238,9 +1369,9 @@ def test_cuda_train_step_matches_the_cpu(cuda, arch):
         assert bool(torch.isfinite(a).all()), p
         rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
         assert rel <= 1e-3, (p, rel)
-    assert (fa.LAUNCHES["flash_attention"],
-            fa.RECOMPUTES["flash_attention"]) == \
-        (2 * cfg.num_layers, cfg.num_layers)
+    assert fa.LAUNCHES == {"flash_attention": 2 * cfg.num_layers,
+                           "flash_attention_bwd": cfg.num_layers}
+    assert fa.RECOMPUTES["flash_attention"] == 0
     opt = TS.make_optimizer(cfg, peak_lr=3e-4, total_steps=4)
     cstate, _ = TS.make_train_step(cfg, opt)(
         {"params": params, "opt": opt.init(params)}, batch)

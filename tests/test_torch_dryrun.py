@@ -130,6 +130,26 @@ def test_kernel_custom_ops_are_counted_with_their_bound_formulas():
     assert t.flops == cost.ssd_scan_cost(2, 64, 4, 16, 8, 16, 4)[0]
 
 
+def test_backward_kernel_op_is_counted_with_its_bound_formula():
+    """The flash backward's custom op on meta tensors, called as
+    ``KernelAttention.backward`` calls it: its fake gradients' shapes, and
+    its FLOPs and bytes ``flash_attention_bwd_cost``'s (10·hd a kept pair;
+    q, k, v, out, dout and lse read, dq, dk and dv written)."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q = torch.empty(2, 4, 64, 32, device="meta", dtype=torch.bfloat16)
+    k = torch.empty(2, 2, 64, 32, device="meta", dtype=torch.bfloat16)
+    out, lse = fa_ops.flash_attention_lse_op(q, k, k, True, 16, 0.0, None)
+    grads, t = op_analysis.count(fa_ops.flash_attention_backward_op, q, k, k,
+                                 out, lse, out, True, 16, 0.0, None)
+    assert [g.shape for g in grads] == [q.shape, k.shape, k.shape]
+    assert (t.flops, t.hbm_bytes, t.kernel_calls) == (
+        *cost.flash_attention_bwd_cost(2, 4, 2, 64, 64, 32, True, 16, 2),
+        {"flash_attention_backward": 1})
+    assert t.flops == 2.5 * cost.flash_attention_cost(
+        2, 4, 2, 64, 64, 32, True, 16, 2)[0]
+
+
 # -- against the reference's hlo_analysis ---------------------------------------
 
 #: a decode cell both packages run with the same dots: internlm2-1.8b cut
@@ -229,9 +249,10 @@ def test_train_cell_runs_the_expert_exchange_and_restores_state():
     world, cut to its first two layers (dense, then MoE): per microbatch
     the MoE layer's two all-to-alls over "model" run in the forward, again
     in the checkpointed recompute, and twice in the backward; the flash
-    kernel runs through its custom op's fake forward and once more in each
-    backward's recompute; the fake world, SPMD mode and the flash-decode
-    flag are as they were after the call."""
+    kernel runs through its custom op's fake forward (with the log-sum-exp
+    the backward takes) and once more in each backward's recompute, and
+    its backward kernel's op once a layer; the fake world, SPMD mode and
+    the flash-decode flag are as they were after the call."""
     from repro_torch.pjit_utils import spmd_enabled
     cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
                               num_layers=2)
@@ -244,7 +265,8 @@ def test_train_cell_runs_the_expert_exchange_and_restores_state():
     assert rec["collectives_by_axis"]["model"]["all-to-all"]["count"] >= \
         6 * A
     assert "all-to-all" not in rec["collectives_by_axis"].get("data", {})
-    assert rec["kernel_calls"] == {"flash_attention": 2 * 2 * A}
+    assert rec["kernel_calls"] == {"flash_attention_lse": 2 * 2 * A,
+                                   "flash_attention_backward": 2 * A}
     assert not dist.is_initialized() and not spmd_enabled()
     assert L.FLASH_DECODE_ENABLED is False
 
@@ -389,6 +411,34 @@ def test_dots_policy_keeps_the_products():
     with pytest.raises(ValueError, match="remat_policy"):
         TS.value_and_grad(dataclasses.replace(cfg, remat_policy="x"), params,
                           {"tokens": toks, "labels": toks})
+
+
+def test_remat_policies_count_the_backward_kernel():
+    """On meta tensors (the CUDA route's ops, as the dry run counts a train
+    cell), under "full" and "dots" every layer runs the flash forward
+    twice (with its log-sum-exp) and the backward kernel once, charged
+    their formulas at the padded head dim (16 → 32), and "dots" still
+    counts fewer FLOPs."""
+    from repro_torch.kernels import cost
+    cfg = reduced(get_config("internlm2-1.8b"))
+    meta = TT.init_params(cfg, torch.Generator(), "meta")
+    toks = torch.zeros((2, 16), dtype=torch.int32, device="meta")
+    n, (B, S) = cfg.num_layers, toks.shape
+    shape = (B, cfg.num_heads, cfg.num_kv_heads, S, S, 32, True, None)
+    kernels = n * (2 * cost.flash_attention_cost(*shape, 4, lse=True)[0]
+                   + cost.flash_attention_bwd_cost(*shape, 4)[0])
+    counts = {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        with op_analysis.OpCounter() as counter:
+            loss, _, _ = TS.value_and_grad(c, meta, {"tokens": toks,
+                                                     "labels": toks})
+        assert loss.device.type == "meta"
+        assert counter.totals.kernel_calls == {
+            "flash_attention_lse": 2 * n, "flash_attention_backward": n}
+        counts[policy] = counter.totals.flops
+        assert counter.totals.flops > kernels
+    assert counts["dots"] < counts["full"]
 
 
 # -- a cache split along its sequence, on two gloo ranks -------------------------

@@ -77,6 +77,8 @@ def test_plain_version_takes_strided_views():
 
 @pytest.mark.parametrize("shapes,match", [
     (((1, 4, 8, 48), (1, 2, 8, 48)), "head dim"),
+    (((1, 4, 8, 300), (1, 2, 8, 300)), "head dim"),
+    (((1, 4, 8, 320), (1, 2, 8, 320)), "CUDA"),
     (((1, 4, 8, 64), (1, 3, 8, 64)), "kv heads"),
     (((1, 4, 8, 64), (1, 2, 8, 32)), "must be"),
     (((1, 4, 8, 64), (1, 2, 8, 64)), "CUDA"),
@@ -289,7 +291,9 @@ def test_padded_route_equals_the_unpadded_twin(case):
 
 
 @pytest.mark.parametrize("hd,kernel_hd", [(16, 32), (8, 32), (48, 64),
-                                          (96, 128), (200, 256), (64, 64)])
+                                          (96, 128), (200, 256), (64, 64),
+                                          (300, 320), (320, 320),
+                                          (512, 512)])
 def test_dispatcher_sends_other_head_dims_to_the_kernel_padded(
         monkeypatch, hd, kernel_hd):
     """On meta tensors (the CUDA route's shapes) the dispatcher hands the
@@ -315,10 +319,13 @@ def test_dispatcher_sends_other_head_dims_to_the_kernel_padded(
 
 
 def test_padded_head_dim_and_its_limit():
+    """Up to 256 the next built head dim; above it there is no limit: the
+    next multiple of 32, which the kernels run as slices of built widths
+    (320 = 256 + 64)."""
     assert [ops.padded_head_dim(d) for d in (1, 16, 32, 33, 200, 256)] == \
         [32, 32, 32, 64, 256, 256]
-    with pytest.raises(ValueError, match="at most 256"):
-        ops.padded_head_dim(257)
+    assert [ops.padded_head_dim(d) for d in (257, 300, 320, 512, 1000)] == \
+        [288, 320, 320, 512, 1024]
 
 
 def test_padded_route_keeps_a_dtensors_layout():

@@ -128,8 +128,12 @@ def test_padded_head_dim(qk, v, hd):
 
 
 def test_padded_head_dim_refuses_what_the_kernel_cannot_take():
-    with pytest.raises(ValueError, match="at most 256"):
-        TMLA.padded_head_dim(320, 128)
+    """The flash kernels take any head dim above 256 that is a multiple of
+    32 (slices of built widths), so no MLA width is refused any more:
+    above 256 the padded head dim is the next multiple of 32."""
+    assert TMLA.padded_head_dim(320, 128) == 320
+    assert TMLA.padded_head_dim(300, 128) == 320
+    assert TMLA.padded_head_dim(192, 288) == 288
 
 
 @pytest.mark.parametrize("dims", DIMS)
