@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line):
 
 0. card and versions;
 1. build the kernel libraries from ``src/`` with nvcc (the hash kernels,
-   the flash forward, the flash backward, the SSD scan), one process each,
-   all started together;
+   the flash forward, the flash backward, the SSD scan, the SSD backward),
+   one process each, all started together;
 2. hold each hash-partition kernel against its plain torch version on the
    card, bit for bit, at the main path's shapes (2^26 keys, the shape
    bucket of 60,000,000 rows) and at edge shapes, and time kernel, plain
@@ -40,7 +40,14 @@ Phases (any failure exits non-zero before the result line):
    mamba2-370m's prefill shape under fast and slow decay (bf16, the
    tensor-core kernel, within 5e-2 elementwise and 1e-2 relative RMS, with
    a control that drops one tile pair under slow decay and must fail that
-   check; float32, the CUDA-core kernel, within 1e-4), timed;
+   check; float32, the CUDA-core kernel, within 1e-4), timed; then the
+   backward kernel against the twin's VJP under slow and fast decay with a
+   nonzero final-state cotangent (dx, ddt, dA, dB and dC within 1e-4 of
+   max |grad| in float32 at B=2, T=1024, H=8 and mamba2's widths; 5e-2
+   and relative RMS 1e-2 in bf16 at mamba2-370m's prefill shape, with a
+   control that leaves tile pair (3, 2) out of dx and must fail that
+   check; a second call bit-equal), timed in bf16 beside its bound and the
+   twin's VJP;
 7. LM serving at full width: ``serve_batch`` for internlm2-1.8b (seeded
    random weights, batch 8, prompt 4096, 32 tokens) in bf16, timed, and in
    float32; finite logits; decode logits equal to a prefill's at two
@@ -260,8 +267,8 @@ hash-partition kernels again, the child's launches added) and each part of
 phase 10 (the hash-partition kernels, counted under a lock across the
 frontend's threads), each process of phase 11 (the hash-partition
 kernels, equal to the counts a CPU dry run of its steps predicts) and
-phase 12's train steps (each LM's kernel, flash's backward kernel and
-SSD's backward recomputes, per step equal to a CPU dry run's), phase 13
+phase 12's train steps (each LM's kernel and its backward kernel, per
+step equal to a CPU dry run's, and no recompute through a twin), phase 13
 (a) (the hash-partition kernels), each of phase 13's serves (flash attention, once per layer in
 the prefill), each of phase 14's (flash attention: 12 per
 recurrentgemma-9b prefill, 36 per whisper-small prefill) and each part of
@@ -273,7 +280,8 @@ attention and its backward, equal to a CPU dry run's ``P17_LAUNCHES``),
 and each serve and train step of phase 18 (a) (flash attention and the
 SSD scan, one per layer a prefill; ``P18_TRAIN_LAUNCHES`` a step).  The
 flash backward's row counts its launches in phases 12, 15 (b), 17 and
-18 (a)'s train steps.
+18 (a)'s train steps, the SSD backward's in phase 12 (b)'s; at the end
+every backward-recompute counter must read 0.
 The second-to-last line is the kernel table as JSON, the last line the
 device record.
 """
@@ -298,6 +306,7 @@ BF16_FLOP_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 SOURCE = "src/repro_torch/kernels/hash_partition/csrc/hash_partition.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
 REPLACES = {
     "hash_partition": "src/repro/kernels/hash_partition/hash_partition.py:83",
     "hash_partition_padded":
@@ -310,6 +319,9 @@ REPLACES = {
     "flash_attention_bwd":
         "src/repro/kernels/flash_attention/flash_attention.py:94",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
+    # no Pallas backward either: the gradient of that kernel's function,
+    # which the reference takes through jnp ssd_scan_ref
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
 }
 MAIN_N = 1 << 26                    # shape bucket of SF-10 lineitem
 SF10_LINES = 60_000_000
@@ -1209,6 +1221,183 @@ def run_ssd(torch, ss, ss_ref, card):
           f"({tile_flops:.4g} tile-granular FLOPs) "
           f"max_abs_err={row['max_abs_err']:.3e} on {card}", flush=True)
     del args, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 6 (backward): the SSD backward kernel ----------------------------------
+
+# each gradient's max abs error against the twin's VJP over its max |grad|:
+# float32 sums in other orders; bf16 also rounds gy·exp(cs), the carried
+# states and the decay-weighted tiles before their products (and rel RMS
+# <= RMS_LIMIT), the forward's bf16 limits
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# the float32 kernel at a smaller shape (B, T, H, P, N, L): mamba2's widths
+SSD_BWD_F32 = (2, 1024, 8, 64, 128, 256)
+
+
+def ssd_bwd_cotangents(torch, gen, x, N):
+    """y's and the final state's cotangents in x's dtype."""
+    B, T, H, P = x.shape
+    return [torch.randn(shape, generator=gen, device=gen.device)
+            .to(x.dtype) for shape in ((B, T, H, P), (B, H, P, N))]
+
+
+def ssd_bwd_check(torch, ss, ss_ref, args, gy, gs, L, what):
+    """The backward kernel against the twin's VJP (both cotangents), and a
+    second call bit-equal to the first: ({grad: max abs err / max |grad|},
+    {grad: rel RMS}, the largest max abs err, the twin's gradients),
+    raising outside SSD_BWD_TOL (bf16: and RMS_LIMIT)."""
+    dname = str(args[0].dtype).split(".")[-1]
+    got = ss.ssd_scan_backward(*args, gy, gs, L)
+    again = ss.ssd_scan_backward(*args, gy, gs, L)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls of the backward differ")
+    del again
+    ins = [t.detach().requires_grad_() for t in args]
+    want = torch.autograd.grad(ss_ref.ssd_ref(*ins, L), ins, (gy, gs))
+    del ins
+    errs, rms, worst = {}, {}, 0.0
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        scale = float(w.float().abs().max())
+        if not bool(torch.isfinite(g).all()) or scale == 0:
+            raise AssertionError(f"{what}: {name} not finite or zero")
+        err = float((g.float() - w.float()).abs().max())
+        worst = max(worst, err)
+        errs[name] = err / scale
+        rms[name] = rel_rms(torch, g, w)
+        if errs[name] > SSD_BWD_TOL[dname] or (
+                dname == "bfloat16" and not rms[name] <= RMS_LIMIT):
+            raise AssertionError(
+                f"{what}: {name} against the twin's VJP: max abs err / max "
+                f"|grad| {errs[name]} (limit {SSD_BWD_TOL[dname]}), rel RMS "
+                f"{rms[name]} (limit {RMS_LIMIT})")
+    return errs, rms, worst, want
+
+
+def ssd_bwd_dropping(torch, dx, x, dt, A, Bm, Cm, gy, L, tile=SSD_DROPPED,
+                     rows=64):
+    """dx with one tile pair's intra-chunk term, sum over the rows l of
+    output tile i of G_ls D_ls dt_s gy_l for the keys s of tile j, left
+    out of every chunk: the control that the relative-RMS check must
+    reject."""
+    B, T, H, P = x.shape
+    i0, j0 = tile[0] * rows, tile[1] * rows
+    out = dx.float().clone()
+    for c0 in range(0, T, L):
+        cs = torch.cumsum(dt[:, c0:c0 + L] * A, dim=1)            # (B,L,H)
+        ci = Cm[:, c0 + i0:c0 + i0 + rows].float()
+        bj = Bm[:, c0 + j0:c0 + j0 + rows].float()
+        decay = torch.exp(cs[:, i0:i0 + rows, None, :]
+                          - cs[:, None, j0:j0 + rows, :])         # (B,i,j,H)
+        w = (torch.einsum("bin,bjn->bij", ci, bj)[..., None] * decay
+             * dt[:, None, c0 + j0:c0 + j0 + rows])
+        out[:, c0 + j0:c0 + j0 + rows] -= torch.einsum(
+            "bijh,bihp->bjhp", w, gy[:, c0 + i0:c0 + i0 + rows].float())
+    return out.to(dx.dtype)
+
+
+def ssd_bwd_split(torch, fn) -> dict:
+    """{launch: device ms} of one call of ``fn`` by torch.profiler, the
+    backward's kernels named as in ``csrc/ssd_scan_bwd.cu``."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"bwd_[a-z]+", e.key)
+            key = m.group(0) if m else e.key[:40]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def run_ssd_bwd(torch, ss, ss_ref, card):
+    """Phase 6's backward: the float32 kernel at SSD_BWD_F32 and the bf16
+    kernel at the table's shape (SSD_MAIN), each under slow and fast decay
+    with a nonzero final-state cotangent, held to the twin's VJP, two
+    calls bit-equal; the dropped-tile control under slow decay; bf16 timed
+    beside its bound and the twin's VJP (its graph built once).  Returns
+    the table row."""
+    from repro_torch.kernels.cost import ssd_scan_bwd_cost
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(66)
+    worst_bf16 = 0.0
+    for dname, (B, T, H, P, N, L) in (("float32", SSD_BWD_F32),
+                                      ("bfloat16", SSD_MAIN)):
+        # fast decay last: its bf16 inputs are the ones timed below
+        for decay in ("slow", "fast"):
+            args = ssd_inputs(torch, gen, B, T, H, P, N,
+                              getattr(torch, dname), decay)
+            gy, gs = ssd_bwd_cotangents(torch, gen, args[0], N)
+            what = (f"ssd_scan backward B={B} T={T} H={H} P={P} N={N} "
+                    f"chunk={L} {dname} {decay} decay")
+            errs, rms, worst, want = ssd_bwd_check(torch, ss, ss_ref, args,
+                                                   gy, gs, L, what)
+            if dname == "bfloat16":
+                worst_bf16 = max(worst_bf16, worst)
+            line = (f"phase 6: {what}: max abs err / max |grad| "
+                    + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                    + "; rel_rms " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                               rms.items())
+                    + f"; max_abs_err={worst:.3e}; a second call bit-equal")
+            if dname == "bfloat16" and decay == "slow":
+                control = rel_rms(torch, ssd_bwd_dropping(
+                    torch, want[0], *args, gy, L), want[0])
+                line += (f"; control with tile pair {SSD_DROPPED} left out "
+                         f"of dx: rel_rms={control:.3e}")
+                if control <= RMS_LIMIT:
+                    raise AssertionError(
+                        "the relative-RMS check passes the SSD backward "
+                        "with a tile pair dropped: it cannot catch one")
+            print(f"{line} on {card}", flush=True)
+            del want
+            if not (dname == "bfloat16" and decay == "fast"):
+                del args, gy, gs
+            torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    flops, nbytes = ssd_scan_bwd_cost(B, T, H, P, N, L,
+                                      args[0].element_size(),
+                                      args[1].element_size())
+    ms = time_ms(torch, lambda: ss.ssd_scan_backward(*args, gy, gs, L),
+                 flush, reps=10)
+    split = ssd_bwd_split(torch, lambda: ss.ssd_scan_backward(*args, gy, gs,
+                                                              L))
+    print("phase 6: ssd_scan backward, one call by torch.profiler: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                      sorted(split.items(), key=lambda kv: -kv[1]))
+          + f" on {card}", flush=True)
+    ins = [t.detach().requires_grad_() for t in args]
+    twin = ss_ref.ssd_ref(*ins, L)
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        twin, ins, (gy, gs), retain_graph=True), flush, reps=3, warmup=1)
+    del twin, ins
+    torch.cuda.empty_cache()
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+    row = {
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": REPLACES["ssd_scan_bwd"], "launches": 0,
+        "max_abs_err": worst_bf16, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound * 1e3,
+        "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                     > nbytes / HBM_BYTES_PER_S else "bytes"),
+        "library_ms": None,     # no single PyTorch call computes it
+    }
+    print(f"phase 6: ssd_scan backward B={B} T={T} H={H} P={P} N={N} "
+          f"chunk={L} bf16 fast decay: kernel_ms={ms:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: {flops:.4g} "
+          f"FLOP, {nbytes:.4g} B) plain_ms (the twin's VJP)={plain_ms:.4f} "
+          f"library_ms=None kernel_TFLOP/s={flops / ms / 1e9:.2f} "
+          f"max_abs_err={worst_bf16:.3e} on {card}", flush=True)
+    del args, gy, gs, flush
     torch.cuda.empty_cache()
     return row
 
@@ -2801,13 +2990,13 @@ def p12_fig12(np, env, agent_mod, device, epochs=P12_EPOCHS,
 #: full width and depth, bf16 as the configs say, remat on
 P12_LM = (("mamba2-370m", 8, 2048, 10), ("internlm2-1.8b", 4, 2048, 4))
 #: one train step's (one loss and backward) launches of the mixer's kernel
-#: and its backward (flash: the backward kernel, and no recompute through
-#: the plain twin; SSD: recomputes through its twin), predicted by a CPU
-#: dry run of the same steps at the same depth with the kernels' Functions
-#: on CPU stand-ins (``tests/test_torch_train.py``): under remat each
-#: layer's forward runs twice (the forward pass, the recompute before its
-#: backward) and its backward once
-P12_LAUNCHES = {"mamba2-370m": {"launches": 96, "recomputes": 48},
+#: and its backward kernel (and no recompute through the plain twin),
+#: predicted by a CPU dry run of the same steps at the same depth with the
+#: kernels' Functions on CPU stand-ins (``tests/test_torch_train.py``):
+#: under remat each layer's forward runs twice (the forward pass, the
+#: recompute before its backward) and its backward once
+P12_LAUNCHES = {"mamba2-370m": {"launches": 96, "backward": 48,
+                                "recomputes": 0},
                 "internlm2-1.8b": {"launches": 48, "backward": 24,
                                    "recomputes": 0}}
 #: the restart check: steps, checkpoint every, injected failure at (one
@@ -2818,12 +3007,6 @@ P12_RESTART = (4, 2, 3)
 #: state (parameters, moments, step): the restored state is bit-exact and
 #: the batches the same, so they must agree bit for bit
 P12_RESTART_TOL = 0.0
-#: the SSD Function's gradients against its plain twin's VJP: its backward
-#: *is* that VJP at the same inputs, so this holds only the wiring (saved
-#: inputs, cotangent dtypes); run-to-run reduction order apart, as a share
-#: of the largest gradient entry.  The flash Function's backward is a
-#: kernel, held to phase 5's limits (FA_BWD_TOL, RMS_LIMIT)
-P12_VJP_TOL = 1e-5
 #: the card agent against a CPU agent from the same weights: forward
 #: (float32 GEMMs, TF32 off), then parameters after one train_batch
 P12_AGENT_TOL = (1e-6, 1e-5)
@@ -2847,10 +3030,11 @@ def p12_env(torch, np, device, card):
         ss.reset_launches()
 
     def read(kernel):
-        counts = {"launches": mods[kernel].LAUNCHES[kernel]}
-        if kernel == "flash_attention":
-            counts["backward"] = fa.LAUNCHES["flash_attention_bwd"]
-        counts["recomputes"] = mods[kernel].RECOMPUTES[kernel]
+        counts = {"launches": mods[kernel].LAUNCHES[kernel],
+                  "backward": (fa.LAUNCHES["flash_attention_bwd"]
+                               if kernel == "flash_attention"
+                               else ss.BWD_LAUNCHES["ssd_scan_bwd"]),
+                  "recomputes": mods[kernel].RECOMPUTES[kernel]}
         return counts
 
     def sync():
@@ -2887,11 +3071,11 @@ def p12_kernel_only(cfg, grads):
 
 def p12_recompute_share(torch, step):
     """The share of one train step's device time spent in the kernels'
-    backward (flash: the backward kernel; SSD: its plain twin's recompute
-    and VJP), from torch.profiler: the device time under the autograd
-    nodes ``KernelSSDBackward`` and ``KernelAttentionBackward`` over all
-    device time.  (backward ms, step device ms), or None where the trace
-    shows no such node."""
+    backward (the backward kernel of flash attention or of the SSD scan),
+    from torch.profiler: the device time under the autograd nodes
+    ``KernelSSDBackward`` and ``KernelAttentionBackward`` over all device
+    time.  (backward ms, step device ms), or None where the trace shows no
+    such node."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2993,16 +3177,17 @@ def p12_lm(env, cfg, arch, batch, seq, n_steps, work, restart=True,
                per_step=per_step)
     if dev == "cuda":
         share = p12_recompute_share(torch, lambda: step(state, b0))
+        node = ("KernelSSDBackward" if kernel == "ssd_scan"
+                else "KernelAttentionBackward")
         if share is None:
-            print(f"phase 12: {what}: recompute share not measured (no "
-                  "Kernel*Backward node in the trace)", flush=True)
+            print(f"phase 12: {what}: backward share not measured (no "
+                  f"{node} node in the trace)", flush=True)
         else:
-            how = ("the backward kernel" if kernel == "flash_attention"
-                   else "the plain twin's recompute + VJP")
             print(f"phase 12: {what}: torch.profiler, one step: device "
-                  f"{share[1]:.2f} ms, of which {kernel}'s backward ({how}) "
-                  f"{share[0]:.2f} ms = {100 * share[0] / share[1]:.1f}% on "
-                  f"{env.card}", flush=True)
+                  f"{share[1]:.2f} ms, of which {kernel}'s backward (the "
+                  f"backward kernel, under {node}) {share[0]:.2f} ms = "
+                  f"{100 * share[0] / share[1]:.1f}% on {env.card}",
+                  flush=True)
             out["recompute_ms"], out["step_device_ms"] = share
     del state
 
@@ -3173,10 +3358,10 @@ def p12_vjp(torch, kernel, gen):
     """A kernel Function at one layer's shape of the phase's model (bf16;
     on ``gen``'s device): its forward (the kernel) held against the plain
     twin as phases 5 and 6 hold it — the reference's allclose and relative
-    RMS <= RMS_LIMIT on every output — then its gradient against the
-    twin's VJP: the flash Function's backward kernel within phase 5's
-    limits (FA_BWD_TOL, RMS_LIMIT), the SSD Function's (the twin's VJP
-    itself) within P12_VJP_TOL.  Returns ({output: max abs err}, {output:
+    RMS <= RMS_LIMIT on every output — then its gradient (its backward
+    kernel) against the twin's VJP within phase 5's and 6's bf16 limits
+    (FA_BWD_TOL or SSD_BWD_TOL, and RMS_LIMIT on every gradient).  Returns
+    ({output: max abs err}, {output:
     relative RMS}, {input: max gradient difference / max |grad|},
     {input: gradient relative RMS})."""
     dev = gen.device
@@ -3226,9 +3411,8 @@ def p12_vjp(torch, kernel, gen):
         if not bool(torch.isfinite(g).all()) or scale == 0:
             raise AssertionError(f"{kernel}: gradient of {name} not finite "
                                  "or zero")
-    limit = P12_VJP_TOL if kernel == "ssd_scan" else FA_BWD_TOL["bfloat16"]
-    if max(grads.values()) > limit or (
-            kernel != "ssd_scan" and max(grms.values()) > RMS_LIMIT):
+    limit = (SSD_BWD_TOL if kernel == "ssd_scan" else FA_BWD_TOL)["bfloat16"]
+    if max(grads.values()) > limit or max(grms.values()) > RMS_LIMIT:
         raise AssertionError(f"{kernel}: Function gradient vs the plain "
                              f"twin's VJP: {grads} (limit {limit}), rel "
                              f"RMS {grms}")
@@ -3329,10 +3513,9 @@ def run_training(torch, np, lt, tcore, card):
     gen = torch.Generator(device="cuda").manual_seed(12)
     for kernel in ("ssd_scan", "flash_attention"):
         errs, rms, grads, grms = p12_vjp(torch, kernel, gen)
-        how, limit = (("the twin's VJP", f"{P12_VJP_TOL}")
-                      if kernel == "ssd_scan" else
-                      ("the backward kernel", f"{FA_BWD_TOL['bfloat16']}, "
-                       f"rel_rms {RMS_LIMIT}"))
+        how = "the backward kernel"
+        tol = (SSD_BWD_TOL if kernel == "ssd_scan" else FA_BWD_TOL)
+        limit = f"{tol['bfloat16']}, rel_rms {RMS_LIMIT}"
         print(f"phase 12: {kernel} Function at one layer's shape "
               f"{P12_VJP_SHAPES[kernel]} (bf16): forward (the kernel) vs the "
               f"plain twin: "
@@ -3364,9 +3547,8 @@ def run_training(torch, np, lt, tcore, card):
                          restart=mamba, int8=mamba)
             kernel = "ssd_scan" if mamba else "flash_attention"
             launches[kernel] = int(out["per_step"]["launches"] * n_steps)
-            if not mamba:
-                launches["flash_attention_bwd"] = int(
-                    out["per_step"]["backward"] * n_steps)
+            launches[kernel + "_bwd"] = int(
+                out["per_step"]["backward"] * n_steps)
             print(f"phase 12: {arch} done in {time.perf_counter() - tl:.1f} "
                   "s", flush=True)
             torch.cuda.empty_cache()
@@ -5475,7 +5657,7 @@ def main() -> int:
     print(card, flush=True)
 
     t1 = time.perf_counter()
-    libs = (hp.LIB, fa.LIB, fa.LIB_BWD, ss.LIB)
+    libs = (hp.LIB, fa.LIB, fa.LIB_BWD, ss.LIB, ss.LIB_BWD)
     with ThreadPoolExecutor(len(libs)) as pool:      # one nvcc per source
         for lib, fut in [(lib, pool.submit(lib.build, True)) for lib in libs]:
             fut.result()
@@ -5517,6 +5699,7 @@ def main() -> int:
     print(f"phase 5: done in {time.perf_counter() - t5:.1f} s", flush=True)
     t6 = time.perf_counter()
     kernels["ssd_scan"] = run_ssd(torch, ss, ss_ref, card)
+    kernels["ssd_scan_bwd"] = run_ssd_bwd(torch, ss, ss_ref, card)
     print(f"phase 6: done in {time.perf_counter() - t6:.1f} s", flush=True)
 
     counters = [(hp.reset_launches, hp.LAUNCHES),
@@ -5539,7 +5722,8 @@ def main() -> int:
         launches[kernel] = served["bfloat16"][kernel]
         print(f"phase {phase}: done in {time.perf_counter() - tp:.1f} s",
               flush=True)
-    launches["flash_attention_bwd"] = 0     # the training phases' own
+    # the training phases' own
+    launches["flash_attention_bwd"] = launches["ssd_scan_bwd"] = 0
 
     hp.reset_launches()
     t9 = time.perf_counter()
@@ -5675,6 +5859,9 @@ def main() -> int:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         return fail(f"kernels never launched on the main path: {missing}")
+    recomputes = {**fa.RECOMPUTES, **ss.RECOMPUTES}
+    if any(recomputes.values()):
+        return fail(f"a backward ran through a plain twin: {recomputes}")
     for name, row in kernels.items():
         row["launches"] = launches[name]
     print("kernels: " + ", ".join(kernels), flush=True)

@@ -71,3 +71,27 @@ def ssd_scan_cost(B: int, T: int, H: int, P: int, N: int, L: int,
                    + itemsize * B * T * H * P        # y out
                    + itemsize * B * H * P * N)       # final state out
     return flops, nbytes
+
+
+def ssd_scan_bwd_cost(B: int, T: int, H: int, P: int, N: int, L: int,
+                      itemsize: int, dt_itemsize: int = 4
+                      ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one chunked SSD backward with chunk ``L``: the
+    products of its formulas (``csrc/ssd_scan_bwd.cu``) over the causal
+    triangles.  Per (batch row, chunk) C B^T's lower triangle once,
+    shared by the heads; per head M = gy x^T, dx's (G D dt)^T gy, dC's
+    (M D dt) B and dB's (M D dt)^T C over the triangle, and five (L, P, N)
+    products: dx's B dh^T, dB's x dh, dC's gy h, the chunk's own state and
+    its own cotangent (the states recomputed).  Bytes: x, gy, B, C and
+    gstate (``itemsize``), dt and A (``dt_itemsize``) read; dx, dB, dC
+    (``itemsize``), ddt and dA (``dt_itemsize``) written."""
+    nc = T // L
+    tri = L * (L + 1) / 2
+    flops = 2.0 * (B * nc * tri * N
+                   + B * H * nc * (2 * tri * P + 2 * tri * N
+                                   + 5 * L * P * N))
+    nbytes = float(itemsize * (3 * B * T * H * P       # x, gy in; dx out
+                               + 4 * B * T * N         # B, C in; dB, dC out
+                               + B * H * P * N)        # gstate in
+                   + dt_itemsize * 2 * (B * T * H + H))  # dt, A in; ddt, dA
+    return flops, nbytes

@@ -1,27 +1,35 @@
-"""Device dispatch for the chunked SSD kernel.
+"""Device dispatch for the chunked SSD kernels.
 
-A CUDA tensor goes to the hand-written kernel (which raises if it cannot
+A CUDA tensor goes to the hand-written kernels (which raise if they cannot
 build, launch or take the shapes) through :class:`KernelSSD`, which gives
-it a gradient; a CPU tensor goes to the plain version under plain
-autograd.  The choice follows the tensor's device and nothing else.
+the forward kernel its gradient; a CPU tensor goes to the plain version
+under plain autograd.  The choice follows the tensor's device and nothing
+else.
 
-The gradient on the card is the VJP of the plain version, recomputed from
-the saved inputs in the backward pass: the JAX package has no backward
-kernel and its training forward differentiates ``ssd_scan_ref``, so this
-is the gradient the reference trains with.  In bfloat16 the forward kernel
-rounds W, x⊙w and the state operand to bfloat16 and the recomputed
-backward (float32 throughout) does not: the gradient is that of a forward
-a rounding away from the one the loss saw.  Each backward costs one more
-float32 scan (counted in ``RECOMPUTES``).
+The gradient on the card is the backward kernel's
+(``csrc/ssd_scan_bwd.cu``): from the saved inputs and both outputs'
+cotangents it recomputes the states entering each chunk, carries the
+state's cotangent back, and computes dx, ddt, dA, dB and dC chunk by chunk,
+holding no (L, L) decay block in device memory.  The JAX package has no
+backward kernel and its training forward differentiates ``ssd_scan_ref``;
+the kernel computes that gradient.  In bfloat16 the forward rounds W, x·w
+and the state operand to bfloat16 and the backward rounds gy·exp(cs), the
+carried states and the decay-weighted tiles before their products (x·w
+it takes as two bf16 parts), each within the bf16 limits the tests and
+``chip_smoke.py`` phase 6 hold it to; in float32 both run in full
+float32.
 
-As for flash attention, the forward is a custom op,
-``repro_torch::ssd_scan`` (:func:`ssd_scan_op`): CUDA tensors launch the
-kernel, fake and meta tensors get the outputs' shapes, and its
-``DTensor`` sharding rule keeps batch-sharded inputs (A replicated) or
-head-sharded ones (x and dt on H, A on its one dim, B and C replicated)
-and gives y and the state the same sharding.  On DTensors the backward
-runs the twin's VJP shard by shard in the layout the kernel ran in
-(:mod:`.._spmd`).
+As for flash attention, each kernel is a custom op: the forward
+``repro_torch::ssd_scan`` (:func:`ssd_scan_op`) and the backward
+``repro_torch::ssd_scan_backward`` (:func:`ssd_scan_backward_op`).  CUDA
+tensors launch the kernel, fake and meta tensors get the outputs' shapes,
+and the forward's ``DTensor`` sharding rule keeps batch-sharded inputs (A
+replicated) or head-sharded ones (x and dt on H, A on its one dim, B and C
+replicated) and gives y and the state the same sharding.  On DTensors the
+backward runs the backward op shard by shard in the layout the forward
+ran in (:mod:`.._spmd`), the gradients of replicated inputs partial over
+the axes that split the work (dA on batch-sharded layouts, dB and dC on
+head-sharded ones).
 """
 
 from __future__ import annotations
@@ -34,7 +42,6 @@ from torch.distributed.tensor.experimental import register_sharding
 
 from ...pjit_utils import mesh_of
 from .. import _spmd
-from .._build import count_launch
 from . import ref as _ref
 from . import ssd_scan as _k
 
@@ -67,10 +74,31 @@ def _ssd_scan_sharding(x, dt, A, Bm, Cm, chunk):
              [Shard(2), Shard(2), Shard(0), R, R, None])]
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_backward", mutates_args=())
+def ssd_scan_backward_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor,
+                         gy: torch.Tensor, gstate: torch.Tensor, chunk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """The backward kernel as a custom op: (dx, ddt, dA, dB, dC) from the
+    forward's inputs and the cotangents of y and the final state."""
+    return _k.ssd_scan_backward(x, dt, A, Bm, Cm, gy, gstate, chunk)
+
+
+@ssd_scan_backward_op.register_fake
+def _ssd_scan_backward_fake(x, dt, A, Bm, Cm, gy, gstate, chunk):
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    return (x.new_empty((B, T, H, P)), dt.new_empty((B, T, H), dtype=f32),
+            A.new_empty((H,), dtype=f32), x.new_empty((B, T, N)),
+            x.new_empty((B, T, N)))
+
+
 class KernelSSD(torch.autograd.Function):
     """Forward: the CUDA kernel, through :func:`ssd_scan_op`.  Backward:
-    the VJP of :func:`~.ref.ssd_ref` at the saved inputs (y's and the
-    final state's cotangents both)."""
+    the backward kernel, through :func:`ssd_scan_backward_op`, from the
+    saved inputs and y's and the final state's cotangents."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
@@ -86,8 +114,6 @@ class KernelSSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
-        count_launch(_k.RECOMPUTES, "ssd_scan")
-        need = ctx.needs_input_grad[:5]
         saved = list(ctx.saved_tensors)
         if ctx.mesh is not None:     # shard by shard, in the forward's layout
             saved = _spmd.to_locals(saved, ctx.mesh, ctx.in_layout)
@@ -100,14 +126,9 @@ class KernelSSD(torch.autograd.Function):
                 if mesh_of(g) is not None else g.new_zeros(shape)
                 for g, pl, shape in zip((gy, gstate), ctx.out_layout,
                                         local)]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(saved, need)]
-            y, state = _ref.ssd_ref(*inputs, ctx.chunk)
-            grads = iter(torch.autograd.grad(
-                (y, state), [t for t, n in zip(inputs, need) if n],
-                (gy, gstate)))
-            grads = [next(grads) if n else None for n in need]
+        grads = ssd_scan_backward_op(*saved, gy, gstate, ctx.chunk)
+        grads = [g if n else None
+                 for g, n in zip(grads, ctx.needs_input_grad[:5])]
         if ctx.mesh is not None:
             grads = _spmd.from_locals(
                 grads, ctx.mesh, _spmd.partial_where_replicated(

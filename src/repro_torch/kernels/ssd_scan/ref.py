@@ -5,6 +5,11 @@ block (``models/ssd.py``) imports from here.
 Arithmetic as the oracle: float32 throughout, the intra-chunk decay as
 ``exp`` of a pairwise segment sum masked to -inf above the diagonal;
 blocks of chunks at a time (see :func:`ssd_ref`).
+
+:func:`ssd_bwd_ref` is the plain twin of the backward kernel
+(``csrc/ssd_scan_bwd.cu``): the same gradient, written out chunk by chunk
+in the kernel's terms, float32.  The tests hold it to ``jax.vjp`` of the
+reference; nothing on the card's path calls it.
 """
 
 from __future__ import annotations
@@ -86,3 +91,78 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = (torch.cat(ys, dim=1) if ys
          else torch.empty((Bsz, 0, H, P), dtype=x.dtype, device=x.device))
     return y, h.to(x.dtype)
+
+
+def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, gy: torch.Tensor,
+                gstate: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_ref` (zero initial state) from y's
+    cotangent ``gy`` (B,T,H,P) and the final state's ``gstate``
+    (B,H,P,N): (dx, ddt, dA, dB, dC), dx, dB and dC in x's dtype, ddt and
+    dA float32.  Float32 throughout, all chunks at once (for the tests'
+    sizes).
+
+    Per chunk, with cs = cumsum(dt·A), G = C·Bᵀ, D_ls = exp(cs_l − cs_s)
+    for s ≤ l, w_s = exp(cs_{L−1} − cs_s)·dt_s, h the state entering the
+    chunk and dh the cotangent of the state leaving it (``gstate`` for the
+    last chunk; dh_c = exp(cs_{L−1})·dh_{c+1} + Σ_l exp(cs_l) gy_l ⊗ C_l):
+    M_ls = gy_l·x_s and E = G ⊙ D ⊙ M; dx = (G⊙D⊙dt)ᵀ·gy + w·(B·dhᵀ);
+    dC = Σ_heads (M⊙D⊙dt)·B + exp(cs)·(gy·h); dB = Σ_heads (M⊙D⊙dt)ᵀ·C
+    + w·(x·dh); the decay's cotangent dcs_l = Σ_s E_ls dt_s + exp(cs_l)
+    ⟨gy_l·h, C_l⟩ − dt_l (Σ_k E_kl + u_l), u_l = exp(cs_{L−1} − cs_l)
+    ⟨x_l·dh, B_l⟩, and at the chunk's last step also Σ_s dt_s u_s +
+    exp(cs_{L−1}) ⟨h, dh⟩; da = its reverse cumsum, ddt = A·da + Σ_k E_kl
+    + u_l and dA = Σ dt·da."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    L = chunk
+    nc = T // L
+    xc = x.float().reshape(Bsz, nc, L, H, P).permute(0, 1, 3, 2, 4)
+    gyc = gy.float().reshape(Bsz, nc, L, H, P).permute(0, 1, 3, 2, 4)
+    dtc = dt.float().reshape(Bsz, nc, L, H).permute(0, 1, 3, 2)  # (B,c,H,L)
+    bc = Bm.float().reshape(Bsz, nc, 1, L, N)
+    cc = Cm.float().reshape(Bsz, nc, 1, L, N)
+    Af = A.float()
+    cs = torch.cumsum(dtc * Af[:, None], dim=-1)
+    last = cs[..., -1:]
+    ecs = torch.exp(cs)
+    D = torch.exp(_segsum(dtc * Af[:, None]))                  # (B,c,H,L,L)
+    GD = (cc @ bc.transpose(-1, -2)) * D
+    w = torch.exp(last - cs) * dtc
+    decay = torch.exp(last[..., 0])                            # (B,c,H)
+    # the states entering each chunk, and the cotangents leaving each
+    local = (xc * w[..., None]).transpose(-1, -2) @ bc          # (B,c,H,P,N)
+    dlocal = (gyc * ecs[..., None]).transpose(-1, -2) @ cc
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    dh = gstate.float()
+    h_in, dh_out = [], [None] * nc
+    for c in range(nc):
+        h_in.append(h)
+        h = h * decay[:, c, :, None, None] + local[:, c]
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dh = dh * decay[:, c, :, None, None] + dlocal[:, c]
+    h_in = torch.stack(h_in, dim=1)
+    dh_out = torch.stack(dh_out, dim=1)
+    M = gyc @ xc.transpose(-1, -2)                             # (B,c,H,L,L)
+    E = GD * M
+    Md = M * D * dtc[..., None, :]
+    gyh = gyc @ h_in                                           # (B,c,H,L,N)
+    xdh = xc @ dh_out                                          # (B,c,H,L,N)
+    dx = ((GD * dtc[..., None, :]).transpose(-1, -2) @ gyc
+          + w[..., None] * (bc @ dh_out.transpose(-1, -2)))
+    dC = (Md @ bc + ecs[..., None] * gyh).sum(2)               # (B,c,L,N)
+    dB = (Md.transpose(-1, -2) @ cc + w[..., None] * xdh).sum(2)
+    u = torch.exp(last - cs) * (xdh * bc).sum(-1)              # (B,c,H,L)
+    direct = E.sum(-2) + u
+    dcs = (E * dtc[..., None, :]).sum(-1) + ecs * (gyh * cc).sum(-1) \
+        - dtc * direct
+    dcs[..., -1] += (dtc * u).sum(-1) + decay * (h_in * dh_out).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt = Af[:, None] * da + direct
+    dA = (dtc * da).sum((0, 1, 3))
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, T, H, P).to(x.dtype),
+            ddt.permute(0, 1, 3, 2).reshape(Bsz, T, H), dA,
+            dB.reshape(Bsz, T, N).to(x.dtype),
+            dC.reshape(Bsz, T, N).to(x.dtype))

@@ -1,20 +1,27 @@
-"""Hand-written CUDA chunked SSD (Mamba-2) for Hopper, and its launcher.
+"""Hand-written CUDA chunked SSD (Mamba-2) for Hopper, forward and
+backward, and their launchers.
 
-The port of the Pallas TPU kernel in the JAX package's
+The forward is the port of the Pallas TPU kernel in the JAX package's
 ``kernels/ssd_scan/ssd_scan.py``: per (batch, head), the chunks of length
 ``chunk`` in order, the intra-chunk quadratic form, the inter-chunk term
 from the carried (P, N) state, and the state update; zero initial state.
-The kernels live in ``csrc/ssd_scan.cu`` (design notes there) and are built
-at first use (:data:`LIB`, see :mod:`.._build`): the dtype picks one —
-bfloat16 runs on the tensor cores (``mma.sync``; W, x·w and the state
-operand rounded to bfloat16), float32 on the CUDA cores in full float32.
+The backward has no TPU counterpart (the reference trains by
+differentiating the jnp ``ssd_scan_ref``): it recomputes the states
+entering each chunk, carries the state's cotangent back from the final
+state's, and computes the five gradients chunk by chunk.  The kernels live
+in ``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu`` (design notes there)
+and are built at first use (:data:`LIB`, :data:`LIB_BWD`, see
+:mod:`.._build`): the dtype picks one — bfloat16 runs on the tensor cores
+(``mma.sync``; the forward rounds W, x·w and the state operand to
+bfloat16, the backward gy·exp(cs), the carried states and the
+decay-weighted tiles), float32 on the CUDA cores in full float32.
 
-:func:`ssd_scan` takes CUDA tensors only.  It reads x, dt, B and C through
-their strides (the last dimension contiguous), so the model's slices of
-the convolution output cost no copy.  It raises ``ValueError`` on what the
-kernel does not take and counts its launches in :data:`LAUNCHES`.  The
-plain version is in :mod:`.ref`; :mod:`.ops` picks between the two by
-device.
+:func:`ssd_scan` and :func:`ssd_scan_backward` take CUDA tensors only.
+They read x, dt, B and C through their strides (the last dimension
+contiguous), so the model's slices of the convolution output cost no copy.
+They raise ``ValueError`` on what the kernels do not take and count their
+launches in :data:`LAUNCHES` and :data:`BWD_LAUNCHES`.  The plain versions
+are in :mod:`.ref`; :mod:`.ops` picks between the two by device.
 """
 
 from __future__ import annotations
@@ -33,15 +40,24 @@ from .._build import (CudaLibrary, count_launch, raise_on, reset_counts,
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches since the last :func:`reset_launches`
+#: launches of the forward kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
-#: backward passes since the last :func:`reset_launches`, each one the
-#: plain twin's VJP recomputed from the saved inputs (:mod:`.ops`)
+#: calls of the backward kernels (one :func:`ssd_scan_backward`) since the
+#: last :func:`reset_launches`
+BWD_LAUNCHES: Dict[str, int] = {"ssd_scan_bwd": 0}
+#: backward passes through the plain twin's VJP since the last
+#: :func:`reset_launches`: none on any path since the backward kernel, so
+#: every count reads 0 (the training checks assert it)
 RECOMPUTES: Dict[str, int] = {"ssd_scan": 0}
+#: CTAs the backward's chunk-parallel passes aim for: the heads of a chunk
+#: are split into groups until (batch rows x chunks x tiles x groups)
+#: reaches two waves over the H100's 132 SMs (the passes' shared memory
+#: holds one CTA an SM)
+GROUP_CTAS = 264
 
 
 def reset_launches() -> None:
-    reset_counts(LAUNCHES, RECOMPUTES)
+    reset_counts(LAUNCHES, BWD_LAUNCHES, RECOMPUTES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -51,9 +67,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_forward.restype = i32
 
 
-LIB = CudaLibrary("ssd_scan",
-                  Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",
-                  _declare)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_backward_scratch.argtypes = [i32] * 7
+    lib.ssd_backward_scratch.restype = ctypes.c_int64
+    lib.ssd_backward.argtypes = [p] * 13 + [i32] * 8 + [p, p]
+    lib.ssd_backward.restype = i32
+
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIB = CudaLibrary("ssd_scan", _CSRC / "ssd_scan.cu", _declare)
+LIB_BWD = CudaLibrary("ssd_scan_bwd", _CSRC / "ssd_scan_bwd.cu",
+                      _declare_bwd)
 
 
 def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -136,3 +161,87 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     raise_on(err, "ssd_scan")
     count_launch(LAUNCHES, "ssd_scan")
     return y, state
+
+
+def kernel_tile(chunk: int) -> int:
+    """Rows of the kernels' tiles for a chunk length (``TL`` in the
+    sources)."""
+    return 64 if chunk % 64 == 0 else (32 if chunk % 32 == 0 else 16)
+
+
+def head_groups(Bsz: int, T: int, H: int, chunk: int) -> int:
+    """The head groups the backward splits each chunk's heads into: the
+    fewest that give its chunk-parallel passes :data:`GROUP_CTAS` CTAs,
+    as equal as whole heads allow (the shapes decide, so the sums' order,
+    and the bits, do not change between calls)."""
+    ctas = max(1, Bsz * (T // chunk) * (chunk // kernel_tile(chunk)))
+    want = min(H, max(1, -(-GROUP_CTAS // ctas)))
+    per = -(-H // want)
+    return -(-H // per)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-B aligned (a copy only where it is not)."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bm: torch.Tensor, Cm: torch.Tensor, gy: torch.Tensor,
+                      gstate: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_scan` on CUDA: from the forward's inputs
+    (as :func:`check_inputs` takes them), y's cotangent ``gy`` (B,T,H,P)
+    and the final state's ``gstate`` (B,H,P,N) → (dx (B,T,H,P), ddt
+    (B,T,H), dA (H,), dB (B,T,N), dC (B,T,N)); dx, dB and dC contiguous in
+    x's dtype, ddt and dA float32.  One call launches the backward's six
+    kernels in order on the current stream."""
+    if x.dim() != 4 or Bm.dim() != 3:
+        raise ValueError("x must be (B, T, H, P) and Bm (B, T, N)")
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[2]
+    if gy.shape != x.shape or gstate.shape != (Bsz, H, P, N):
+        raise ValueError(f"gy {tuple(gy.shape)} must be x's shape and "
+                         f"gstate {tuple(gstate.shape)} (B, H, P, N) = "
+                         f"{(Bsz, H, P, N)}")
+    check_inputs(x, dt, A, Bm, Cm, chunk)
+    for name, t in (("gy", gy), ("gstate", gstate)):
+        if t.device != x.device:
+            raise ValueError(f"{name} must be on x's device {x.device}, "
+                             f"got {t.device}")
+    if T // chunk > 65535:
+        raise ValueError(f"{T // chunk} chunks: the backward's grid takes "
+                         "at most 65535")
+    dev, dtype = x.device, x.dtype
+    dx = torch.empty((Bsz, T, H, P), dtype=dtype, device=dev)
+    ddt = torch.empty((Bsz, T, H), dtype=torch.float32, device=dev)
+    dA = torch.zeros((H,), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bsz, T, N), dtype=dtype, device=dev)
+    dC = torch.empty((Bsz, T, N), dtype=dtype, device=dev)
+    if Bsz == 0 or H == 0 or T == 0:
+        return dx, ddt, dA, dB, dC
+    groups = head_groups(Bsz, T, H, chunk)
+    if Bsz * groups > 65535:
+        raise ValueError(f"{Bsz} batch rows x {groups} head groups: the "
+                         "backward's grid takes at most 65535")
+    gy = _dense(gy.to(dtype))
+    gstate = _dense(gstate.to(dtype))
+    lib = LIB_BWD.lib()
+    scratch = torch.empty(
+        lib.ssd_backward_scratch(Bsz, T, H, P, N, int(chunk), groups),
+        dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 10)(
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
+    with torch.cuda.device(dev):
+        err = lib.ssd_backward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), gy.data_ptr(), gstate.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            scratch.data_ptr(), _DTYPES[dtype], Bsz, T, H, P, N, int(chunk),
+            groups, strides, stream())
+    raise_on(err, "ssd_scan_backward")
+    count_launch(BWD_LAUNCHES, "ssd_scan_bwd")
+    return dx, ddt, dA, dB, dC

@@ -37,7 +37,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels.cost import (flash_attention_bwd_cost, flash_attention_cost,
-                            ssd_scan_cost)
+                            ssd_scan_bwd_cost, ssd_scan_cost)
 
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute")
@@ -120,7 +120,11 @@ def _mm_flops(func, args) -> float:
 
 
 def _kernel_cost(name: str, args) -> tuple:
-    if name.startswith("flash_attention"):
+    """(FLOPs, bytes) of one call of the ``repro_torch`` kernel op
+    ``name``, by its formula in ``kernels/cost.py``; an op without one
+    raises."""
+    if name in ("flash_attention", "flash_attention_lse",
+                "flash_attention_backward"):
         q, k = args[0], args[1]
         B, H, Sq, hd = q.shape
         shape = (B, H, k.shape[1], Sq, k.shape[2], hd)
@@ -130,10 +134,15 @@ def _kernel_cost(name: str, args) -> tuple:
         return flash_attention_cost(*shape, args[3], args[4],
                                     q.element_size(),
                                     lse=name == "flash_attention_lse")
-    x, dt, Bm = args[0], args[1], args[3]
-    B, T, H, P = x.shape
-    return ssd_scan_cost(B, T, H, P, Bm.shape[-1], args[5],
-                         x.element_size(), dt.element_size())
+    if name in ("ssd_scan", "ssd_scan_backward"):
+        x, dt, Bm = args[0], args[1], args[3]
+        B, T, H, P = x.shape
+        if name == "ssd_scan_backward":
+            return ssd_scan_bwd_cost(B, T, H, P, Bm.shape[-1], args[7],
+                                     x.element_size(), dt.element_size())
+        return ssd_scan_cost(B, T, H, P, Bm.shape[-1], args[5],
+                             x.element_size(), dt.element_size())
+    raise KeyError(f"no cost formula for the kernel op repro_torch::{name}")
 
 
 class OpCounter(TorchDispatchMode):

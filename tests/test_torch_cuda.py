@@ -938,14 +938,25 @@ from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 
 
-def _vjp_close(got, want):
-    """The SSD Function's backward recomputes the plain twin at the same
-    inputs: the same computation, so only a run-to-run reduction order
-    could separate them."""
+#: the SSD backward kernel against the twin's VJP, max abs err over max
+#: |grad| for each gradient: float32 sums in other orders; bf16 also rounds
+#: gy·exp(cs), the carried states and the decay-weighted tiles before their
+#: products (and relative RMS <= 1e-2), phase 6's limits
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _vjp_close(got, want, dtype):
+    """Each SSD gradient within SSD_BWD_TOL of the twin's VJP (bf16 also
+    within 1e-2 relative RMS)."""
     for a, b in zip(got, want):
-        assert bool(torch.isfinite(a).all()) and bool(b.abs().max() > 0)
-        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
-                                   atol=1e-5 * float(b.abs().max()))
+        scale = float(b.float().abs().max())
+        assert bool(torch.isfinite(a).all()) and scale > 0
+        err = float((a.float() - b.float()).abs().max()) / scale
+        assert err <= SSD_BWD_TOL[dtype], err
+        if dtype == torch.bfloat16:
+            rms = torch.linalg.vector_norm(a.double() - b.double()) / \
+                torch.linalg.vector_norm(b.double())
+            assert float(rms) <= 1e-2, float(rms)
 
 
 #: the flash backward kernel against the twin's VJP, max abs err over max
@@ -1092,6 +1103,9 @@ def test_cuda_flash_backward_on_a_one_rank_dtensor(cuda, tmp_path):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_scan_gradient_is_the_twins_vjp(cuda, dtype):
+    """The dispatcher's gradient on the card is the backward kernel's (one
+    launch, no recompute through the twin), within phase 6's limits of the
+    twin's VJP."""
     ins = [t.detach().requires_grad_()
            for t in _ssd_inputs(cuda, 2, 64, 3, 16, 16, dtype)]
     ss.reset_launches()
@@ -1102,8 +1116,67 @@ def test_cuda_ssd_scan_gradient_is_the_twins_vjp(cuda, dtype):
             for t in (y, h)]
     got = torch.autograd.grad((y, h), ins, cots)
     want = torch.autograd.grad(ssd_ref(*ins, 32), ins, cots)
-    _vjp_close(got, want)
-    assert (ss.LAUNCHES["ssd_scan"], ss.RECOMPUTES["ssd_scan"]) == (1, 1)
+    _vjp_close(got, want, dtype)
+    assert (ss.LAUNCHES["ssd_scan"], ss.BWD_LAUNCHES["ssd_scan_bwd"],
+            ss.RECOMPUTES["ssd_scan"]) == (1, 1, 0)
+
+
+SSD_BWD_SHAPES = [
+    # (B, T, H, P, N, chunk, decay): one chunk and several, chunk 16, 32,
+    # 64 and 256, P 16/48/64 and N 32/80/128, fast and slow decay; the last
+    # at mamba2's widths with 32 heads (two head groups)
+    (1, 16, 2, 16, 32, 16, "fast"),
+    (2, 96, 3, 32, 32, 32, "slow"),
+    (2, 192, 2, 48, 80, 64, "slow"),
+    (1, 256, 2, 64, 128, 256, "fast"),
+    (2, 1024, 4, 64, 128, 256, "slow"),
+    (2, 512, 32, 64, 128, 256, "slow"),
+]
+
+
+@pytest.mark.parametrize("gstate", ["zero", "nonzero"])
+@pytest.mark.parametrize("case", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_backward_matches_twins_vjp(cuda, case, dtype, gstate):
+    """The backward kernel on x, B and C sliced from one convolution
+    buffer, against the twin's VJP (both cotangents; gstate zero or a
+    draw); a second call bit-equal."""
+    B, T, H, P, N, chunk, decay = case
+    x, dt, A, Bm, Cm = (_ssd_slow_inputs if decay == "slow"
+                        else _ssd_inputs)(cuda, B, T, H, P, N, dtype)
+    if decay == "fast":                 # as slices of one buffer too
+        conv = torch.cat([x.reshape(B, T, H * P), Bm, Cm], -1)
+        x, Bm, Cm = (conv[..., :H * P].reshape(B, T, H, P),
+                     conv[..., H * P:H * P + N], conv[..., H * P + N:])
+    g = torch.Generator(device=cuda).manual_seed(T + H)
+    gy = torch.randn((B, T, H, P), generator=g, device=cuda).to(dtype)
+    gs = torch.randn((B, H, P, N), generator=g, device=cuda).to(dtype)
+    if gstate == "zero":
+        gs.zero_()
+    got = ss.ssd_scan_backward(x, dt, A, Bm, Cm, gy, gs, chunk)
+    again = ss.ssd_scan_backward(x, dt, A, Bm, Cm, gy, gs, chunk)
+    torch.cuda.synchronize()
+    for a, b, like in zip(got, again, (x, dt, A, Bm, Cm)):
+        assert torch.equal(a, b)
+        assert a.shape == like.shape and a.dtype == like.dtype
+    ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    want = torch.autograd.grad(ssd_ref(*ins, chunk), ins, (gy, gs))
+    _vjp_close(got, want, dtype)
+
+
+def test_cuda_ssd_backward_fake_op_matches_the_kernel(cuda):
+    """The backward op's fake implementation on meta tensors gives the
+    shapes, dtypes and strides the kernel's gradients have."""
+    x, dt, A, Bm, Cm = _ssd_slow_inputs(cuda, 2, 64, 4, 32, 48,
+                                        torch.bfloat16)
+    gy = torch.zeros_like(x)
+    gs = torch.zeros((2, 4, 32, 48), dtype=torch.bfloat16, device=cuda)
+    got = ss_ops.ssd_scan_backward_op(x, dt, A, Bm, Cm, gy, gs, 16)
+    meta = [t.to("meta") for t in (x, dt, A, Bm, Cm, gy, gs)]
+    fake = ss_ops.ssd_scan_backward_op(*meta, 16)
+    for a, b in zip(got, fake):
+        assert (a.shape, a.dtype, a.stride()) == (b.shape, b.dtype,
+                                                  b.stride())
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-370m"])
@@ -1113,8 +1186,7 @@ def test_cuda_train_forward_gives_kernel_only_leaves_gradients(cuda, arch):
     get nonzero gradients, every leaf's gradient is close to the same
     weights' on the CPU (float32: the kernels' forward within 3e-5 and
     1e-4 of the twins'), and each layer launched its kernel twice under
-    remat with one backward (flash: the backward kernel, no recompute
-    through the twin; SSD: the twin's recompute)."""
+    remat with one backward kernel (no recompute through a twin)."""
     import dataclasses
     cfg = reduced(get_config(arch))
     if cfg.ssd is None:
@@ -1142,8 +1214,8 @@ def test_cuda_train_forward_gives_kernel_only_leaves_gradients(cuda, arch):
         assert rel <= 1e-3, (p, rel)
     n = cfg.num_layers
     if cfg.ssd:
-        assert (ss.LAUNCHES["ssd_scan"], ss.RECOMPUTES["ssd_scan"]) == (2 * n,
-                                                                        n)
+        assert (ss.LAUNCHES["ssd_scan"], ss.BWD_LAUNCHES["ssd_scan_bwd"],
+                ss.RECOMPUTES["ssd_scan"]) == (2 * n, n, 0)
     else:
         assert fa.LAUNCHES == {"flash_attention": 2 * n,
                                "flash_attention_bwd": n}

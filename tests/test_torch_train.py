@@ -5,8 +5,8 @@ steps with and without accumulation, compressed steps, checkpoints
 crossing between the packages both ways, the token pipeline, restarts,
 the CLI, and the autograd Functions that give the kernels a gradient
 (run here with CPU stand-ins for the kernels: the flash forward and
-backward kernels and the SSD forward kernel, each replaced by its plain
-twin)."""
+backward kernels and the SSD forward and backward kernels, each replaced
+by its plain twin)."""
 
 import dataclasses
 import json
@@ -38,7 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref)
 from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ss  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_ref  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.launch import train as TTrain  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
@@ -441,16 +441,21 @@ def flash_bwd_stand_in(q, k, v, out, lse, dout, **kw):
 @pytest.fixture
 def stand_ins(monkeypatch):
     """The CUDA routes' Functions on CPU tensors: each kernel (the flash
-    forward and backward, the SSD forward) replaced by its plain twin
-    (counted as a launch), the dispatchers routed through the
+    forward and backward, the SSD forward and backward) replaced by its
+    plain twin (counted as a launch), the dispatchers routed through the
     Functions."""
     def scan(x, dt, A, Bm, Cm, chunk):
         count_launch(ss.LAUNCHES, "ssd_scan")
         return ssd_ref(x, dt, A, Bm, Cm, chunk)
 
+    def scan_bwd(x, dt, A, Bm, Cm, gy, gstate, chunk):
+        count_launch(ss.BWD_LAUNCHES, "ssd_scan_bwd")
+        return ssd_bwd_ref(x, dt, A, Bm, Cm, gy, gstate, chunk)
+
     monkeypatch.setattr(fa, "flash_attention", flash_stand_in)
     monkeypatch.setattr(fa, "flash_attention_backward", flash_bwd_stand_in)
     monkeypatch.setattr(ss, "ssd_scan", scan)
+    monkeypatch.setattr(ss, "ssd_scan_backward", scan_bwd)
     monkeypatch.setattr(fa_ops, "attention", lambda q, k, v, *, causal=True,
                         window=None, softcap=0.0, scale=None:
                         fa_ops.KernelAttention.apply(q, k, v, causal, window,
@@ -464,17 +469,18 @@ def stand_ins(monkeypatch):
     ss.reset_launches()
 
 
-#: the flash Function's gradient (the backward kernel's formulas, float32)
-#: against plain autograd through the twin: the same function, its sums
-#: in another order, as a share of the largest gradient entry
-FLASH_GRAD_TOL = 1e-5
+#: the Functions' gradients (the backward kernels' formulas, float32)
+#: against plain autograd through the forward's twin: the same function,
+#: its sums in another order, as a share of the largest gradient entry
+FLASH_GRAD_TOL = SSD_GRAD_TOL = 1e-5
 
 
 def test_functions_give_the_plain_twins_gradient(stand_ins):
-    """The flash Function's gradient is the backward kernel's (here its
-    plain twin's formulas) and equals plain autograd through the forward's
-    twin within FLASH_GRAD_TOL; the SSD Function's backward is its twin's
-    VJP, bit for bit."""
+    """Each Function's gradient is its backward kernel's (here the plain
+    twin of the kernel's formulas) and equals plain autograd through the
+    forward's twin within FLASH_GRAD_TOL and SSD_GRAD_TOL, whether or not
+    the SSD's final state reaches the loss; no backward recomputes
+    through a twin."""
     g = torch.Generator().manual_seed(0)
     q = torch.randn(2, 4, 24, 16, generator=g, requires_grad=True)
     k = torch.randn(2, 2, 24, 16, generator=g, requires_grad=True)
@@ -514,8 +520,10 @@ def test_functions_give_the_plain_twins_gradient(stand_ins):
                                    ins, cots)
         for a, b in zip(got, want):
             assert torch.isfinite(a).all()
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert ss.LAUNCHES["ssd_scan"] == 1 and ss.RECOMPUTES["ssd_scan"] == 2
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=SSD_GRAD_TOL * float(b.abs().max()))
+    assert (ss.LAUNCHES["ssd_scan"], ss.BWD_LAUNCHES["ssd_scan_bwd"],
+            ss.RECOMPUTES["ssd_scan"]) == (1, 2, 0)
 
 
 def test_train_step_through_the_functions_matches_plain_autograd(model,
@@ -523,16 +531,15 @@ def test_train_step_through_the_functions_matches_plain_autograd(model,
     """The whole model's gradient with the mixers behind the Functions (as
     on the card) equals plain autograd's and ``jax.value_and_grad``'s, and
     the kernels launch twice a layer under remat (forward, recompute) with
-    one backward each: the flash backward kernel (no recompute through the
-    twin), the SSD twin's recompute."""
+    one backward kernel each (no recompute through a twin)."""
     cfg, params = model
     tparams = _port_state(cfg, {"params": params})["params"]
     tbatch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
     loss, _, grads = TS.value_and_grad(cfg, tparams, tbatch)
     n = cfg.num_layers
     if cfg.ssd:
-        assert (ss.LAUNCHES["ssd_scan"], ss.RECOMPUTES["ssd_scan"]) == \
-            (2 * n, n)
+        assert (ss.LAUNCHES["ssd_scan"], ss.BWD_LAUNCHES["ssd_scan_bwd"],
+                ss.RECOMPUTES["ssd_scan"]) == (2 * n, n, 0)
     else:
         assert fa.LAUNCHES == {"flash_attention": 2 * n,
                                "flash_attention_bwd": n}
@@ -543,6 +550,7 @@ def test_train_step_through_the_functions_matches_plain_autograd(model,
         TT.forward(cfg, tparams, tbatch["tokens"])
     assert ss.RECOMPUTES["ssd_scan"] == fa.RECOMPUTES["flash_attention"] == 0
     assert fa.LAUNCHES["flash_attention_bwd"] == 0
+    assert ss.BWD_LAUNCHES["ssd_scan_bwd"] == 0
     (jloss, _), jgrads = jax.value_and_grad(
         lambda p: JT.loss_fn(cfg, p, jax.tree.map(jnp.asarray, {
             k: v.numpy() for k, v in tbatch.items()})), has_aux=True)(params)
