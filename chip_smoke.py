@@ -34,7 +34,8 @@ Phases (any failure exits non-zero before the result line):
    and 512) and at internlm2-1.8b's shape and rows 4b and 4c's (dq, dk, dv
    within 1e-4 of max |grad| in float32, 2e-2 and relative RMS 1e-2 in
    bf16; a second call bit-equal), timed in bf16 beside its bound, the
-   twin's VJP and SDPA's backward;
+   twin's VJP and SDPA's backward, with a torch.profiler split of one call
+   by launch (the D pass, the fused kernel, the dq pass);
 6. the chunked SSD scan against its plain version at the reference's test
    shapes, one small shape under slow decay (Mamba-2's published init) and
    mamba2-370m's prefill shape under fast and slow decay (bf16, the
@@ -89,7 +90,8 @@ Phases (any failure exits non-zero before the result line):
    every result equal to the serial baseline, the generation up by 4, the
    hash kernels' launches exactly the flips' and the executions' device
    re-buckets; then ``ap.start``/``stop`` with no error;
-11. the cluster tier (``repro_torch.cluster``) on the card across three
+11. (beside phases 9 and 10, all three host-bound) the cluster tier
+   (``repro_torch.cluster``) on the card across three
    processes (this script with ``--phase11-child``, started by phase 11
    itself), each traced under its own label: (write) TPC-H SF 10 lineitem
    and orders hash-partitioned on orderkey and part round-robin into a
@@ -921,6 +923,9 @@ FA_BWD_TIMED = (
 # float32 sums in other orders; bf16 also rounds P and dS before their
 # products (and rel RMS <= RMS_LIMIT)
 FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the backward's launches by kernel name (csrc/flash_attention_bwd.cu; a
+# split's other launches keep their own names)
+FA_BWD_SPLIT = r"fa_bwd_[a-z0-9_]+"
 
 
 def fa_bwd_inputs(torch, gen, B, H, KV, Sq, Skv, hd, dtype):
@@ -1016,6 +1021,13 @@ def run_flash_bwd(torch, fa, fa_ref, card):
                 B, H, KV, Sq, Skv, hd, causal, window, q.element_size())
             ms = time_ms(torch, lambda: fa.flash_attention_backward(
                 q, k, v, out, lse, dout, **kw), flush, reps=10)
+            split = bwd_split(torch, lambda: fa.flash_attention_backward(
+                q, k, v, out, lse, dout, **kw), FA_BWD_SPLIT)
+            print(f"phase 5: flash_attention backward {what} bf16, one call "
+                  "by torch.profiler: "
+                  + ", ".join(f"{n} {t:.4f} ms" for n, t in
+                              sorted(split.items(), key=lambda kv: -kv[1]))
+                  + f" on {card}", flush=True)
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
             twin = fa_ref.attention_ref(*ins, **kw)
             plain_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -1299,9 +1311,11 @@ def ssd_bwd_dropping(torch, dx, x, dt, A, Bm, Cm, gy, L, tile=SSD_DROPPED,
     return out.to(dx.dtype)
 
 
-def ssd_bwd_split(torch, fn) -> dict:
-    """{launch: device ms} of one call of ``fn`` by torch.profiler, the
-    backward's kernels named as in ``csrc/ssd_scan_bwd.cu``."""
+def bwd_split(torch, fn, pattern: str = r"bwd_[a-z]+") -> dict:
+    """{launch: device ms} of one call of ``fn`` by torch.profiler, a
+    kernel keyed by the first match of ``pattern`` in its name (the
+    backward's kernels as named in ``csrc/ssd_scan_bwd.cu`` by default;
+    any other launch by its name's first 40 characters)."""
     import re
 
     from torch.autograd import DeviceType
@@ -1314,7 +1328,7 @@ def ssd_bwd_split(torch, fn) -> dict:
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            m = re.search(r"bwd_[a-z]+", e.key)
+            m = re.search(pattern, e.key)
             key = m.group(0) if m else e.key[:40]
             out[key] = out.get(key, 0.0) + e.self_device_time_total / 1e3
     return out
@@ -1369,7 +1383,7 @@ def run_ssd_bwd(torch, ss, ss_ref, card):
                                       args[1].element_size())
     ms = time_ms(torch, lambda: ss.ssd_scan_backward(*args, gy, gs, L),
                  flush, reps=10)
-    split = ssd_bwd_split(torch, lambda: ss.ssd_scan_backward(*args, gy, gs,
+    split = bwd_split(torch, lambda: ss.ssd_scan_backward(*args, gy, gs,
                                                               L))
     print("phase 6: ssd_scan backward, one call by torch.profiler: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in
@@ -3292,8 +3306,9 @@ def p12_long(env, cfg, arch, batch, seq, n_steps):
     the last, flash launches and backward launches per step those of
     :data:`P12_LAUNCHES` (the same layers under remat), step seconds
     (median after the warm-up), tokens/s, peak memory, beside the bytes
-    :func:`p17_reckon` charges the step and the twin's float32 scores it
-    charged before the backward kernel (4 × B·H·S²·4 B)."""
+    :func:`p17_reckon` charges the step with the backward's float32 dq sum
+    (B·H·S·hd·4 B) and the twin's float32 scores it charged before the
+    backward kernel (4 × B·H·S²·4 B)."""
     torch = env.torch
     from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.launch import steps as S
@@ -3301,11 +3316,16 @@ def p12_long(env, cfg, arch, batch, seq, n_steps):
     what = f"phase 12: (d) {arch} B={batch} S={seq} {cfg.param_dtype}"
     rk = p17_reckon(torch, cfg, batch, seq)
     scores = 4 * batch * cfg.num_heads * seq * seq * 4
+    # the bf16 backward's float32 dq sum, one layer's at a time
+    dq_sum = 4 * batch * cfg.num_heads * -(-seq // 64) * 64 \
+        * max(cfg.head_dim, 64)
     print(f"{what}: reckoned a step {rk['step'] / 1e9:.2f} GB (weights, "
-          f"gradients, moments, logits); the twin's float32 scores, which "
-          f"the reckoning charged before the backward kernel, would add "
-          f"{scores / 1e9:.2f} GB: {(rk['step'] + scores) / 1e9:.2f} GB "
-          f"against the {P17_BYTES_LIMIT / 1e9:.0f} GB limit", flush=True)
+          f"gradients, moments, logits) and the attention backward's "
+          f"float32 dq sum {dq_sum / 1e9:.3f} GB: "
+          f"{(rk['step'] + dq_sum) / 1e9:.2f} GB against the "
+          f"{P17_BYTES_LIMIT / 1e9:.0f} GB limit; the twin's float32 "
+          f"scores, which the reckoning charged before the backward kernel, "
+          f"would add {scores / 1e9:.2f} GB", flush=True)
     src = TokenSource(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                  global_batch=batch))
     b0 = {k: torch.as_tensor(v, device=dev)
@@ -3344,7 +3364,8 @@ def p12_long(env, cfg, arch, batch, seq, n_steps):
         raise AssertionError(f"{what}: per step {per_step}, phase 12 "
                              f"counts {P12_LAUNCHES[arch]}")
     return {"losses": losses, "step_s": step_s, "peak_bytes": peak,
-            "per_step": per_step, "scores_bytes": scores, "reckoned": rk}
+            "per_step": per_step, "scores_bytes": scores,
+            "dq_sum_bytes": dq_sum, "reckoned": rk}
 
 
 #: one layer's kernel shapes in phase 12's models: SSD (B, T, H, P, N,
@@ -5725,6 +5746,12 @@ def main() -> int:
     # the training phases' own
     launches["flash_attention_bwd"] = launches["ssd_scan_bwd"] = 0
 
+    # phase 11's three processes run beside phases 9 and 10: all three are
+    # host-bound, and phase 11's store, counters and output are its own
+    t11 = time.perf_counter()
+    pool11 = ThreadPoolExecutor(1)
+    cluster = pool11.submit(run_cluster)
+
     hp.reset_launches()
     t9 = time.perf_counter()
     child = run_durable(torch, np, lt, tcore, lineitem10, tpch1)
@@ -5746,14 +5773,14 @@ def main() -> int:
     print(f"phase 10: done in {time.perf_counter() - t10:.1f} s on {card}; "
           f"launches {phase10}", flush=True)
 
-    t11 = time.perf_counter()
-    phase11 = run_cluster()
+    phase11 = cluster.result()
+    pool11.shutdown()
     for k in ("hash_partition", "hash_partition_padded", "scatter_perm"):
         if phase11.get(k, 0) == 0:
             return fail(f"phase 11 never launched {k}")
         launches[k] += phase11[k]
-    print(f"phase 11: done in {time.perf_counter() - t11:.1f} s on {card}; "
-          f"launches {phase11}", flush=True)
+    print(f"phase 11: done in {time.perf_counter() - t11:.1f} s (beside "
+          f"phases 9 and 10) on {card}; launches {phase11}", flush=True)
 
     t12 = time.perf_counter()
     phase12 = run_training(torch, np, lt, tcore, card)

@@ -1,0 +1,306 @@
+// Hopper (sm_90a) building blocks of the fused bf16 flash-attention
+// backward (flash_attention_bwd.cu), as inline PTX: mbarriers, TMA tensor
+// and bulk copies, named barriers, the wgmma shared-memory descriptor and
+// the wgmma products the kernel issues, and the gpu-scope loads and
+// release of its dq counters.
+//
+// Shared-memory tiles are bf16 in column blocks of 64 (128 B a row), a
+// block `rows` x 128 B, written by TMA with its 128-byte swizzle (16-B
+// chunk c of row r stored at chunk c ^ (r % 8)), every block 1024-B
+// aligned.  A wgmma operand in such a tile is described by
+//   K-major (the reduced dim along the rows' 64 columns): start at row r0
+//     (a multiple of 8), + 32 B per k16 step inside the block, the next
+//     block for the next 64 columns; SBO = 1024 (8 rows), LBO unused;
+//   MN-major (the reduced dim down the rows): start at row k0 (+ 2048 B a
+//     k16 step), LBO = the block stride (the next 64 columns of M or N),
+//     SBO = 1024.
+// A wgmma accumulator of m64nN: thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) and, in n8 block j, columns
+// 8 j + 2 (t % 4) (+ 1): registers 4 j + {0, 1} (row), 4 j + {2, 3}
+// (row + 8), the m16n8 C fragment of fa_common.cuh per warp.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers -----------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive and expect `bytes` more of asynchronous copies this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem(bar)), "r"(bytes) : "memory");
+}
+
+// a wait that has not ended after this long traps: a fault in a kernel's
+// protocol becomes a launch error instead of a hang
+constexpr uint64_t kWaitLimitNs = 20000000000ull;
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint64_t* bar,
+                                             uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
+  return done;
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+// mbar_wait by every lane of a warp, which leaves it converged (the
+// aligned wgmma and barrier instructions that follow need it)
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar,
+                                               uint32_t parity) {
+  mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+// -- TMA -------------------------------------------------------------------------
+
+// the box of tensor map `map` at coordinates (c0 innermost .. c3) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-B aligned) global -> shared
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-B aligned) shared -> global as
+// one bulk copy, or, float32, added element-wise to global memory; each a
+// bulk group of its own, waited on by bulk_wait
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               "cp.async.bulk.commit_group;\n"
+               :: "l"(dst), "r"(smem(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+               "[%0], [%1], %2;\n"
+               "cp.async.bulk.commit_group;\n"
+               :: "l"(dst), "r"(smem(src)), "r"(bytes) : "memory");
+}
+
+// until this thread's bulk groups have completed (their writes performed)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy global accesses with its
+// async-proxy (bulk copy) ones
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- threads ---------------------------------------------------------------------
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// this thread's earlier memory operations ordered before its later ones
+// at gpu scope
+__device__ __forceinline__ void fence_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// gpu-scope acquire load and release add of a counter in global memory
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// until *p >= target (acquire)
+__device__ __forceinline__ void wait_count(const int* p, int target) {
+  if (ld_acquire(p) >= target) return;
+  const uint64_t t0 = now_ns();
+  while (ld_acquire(p) < target)
+    if (now_ns() - t0 > kWaitLimitNs) __trap();
+}
+
+__device__ __forceinline__ void red_release(int* p, int v) {
+  asm volatile("fence.acq_rel.gpu;\n"
+               "red.relaxed.gpu.global.add.s32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// -- wgmma -----------------------------------------------------------------------
+
+// a shared-memory operand: 128-byte swizzle, start, LBO and SBO in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | 1ull << 62;
+}
+
+// the same operand `bytes` further on (the start address field, in
+// 16-B units, never carries: shared memory is below 256 KB)
+__device__ __forceinline__ uint64_t adv(uint64_t d, uint32_t bytes) {
+  return d + (bytes >> 4);
+}
+
+// `d` as a value the compiler cannot hoist out of a loop: descriptors
+// derived from it are made where they are used instead of held in
+// registers across the loop
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of `d` across the
+// asynchronous products (around an issue and after a wait)
+template <int R>
+__device__ __forceinline__ void keep(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 32, float32) (+)= A . B, both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, float32) (+)= A . B, both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128, float32) (+)= A . B, both from shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+}  // namespace hop

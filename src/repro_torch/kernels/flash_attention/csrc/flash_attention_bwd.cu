@@ -9,56 +9,72 @@
 // backward.  This kernel computes that gradient of the same function (GQA,
 // causal, sliding window, tanh softcap, the kv tail masked), recomputing
 // P tile by tile from lse, so that no (Sq, Skv) score matrix is ever held:
-// its memory is that of its inputs and outputs, as the reference's
-// blockwise path bounds it.
-//
-// The FlashAttention-2 split, written for this card (nothing carried over
-// from a TPU block structure):
-//  * D = rowsum(do * o) in float32, one warp a row (fa_bwd_delta).
-//  * dk and dv (fa_bwd_dkdv_*): one CTA per (kv tile, kv head, batch row).
-//    It loops over the G query heads of its group and, for each, over the
-//    q tiles the mask lets reach the tile (causal from the diagonal down, a
-//    window up to key + window - 1, all of them without either).  A step
-//    recomputes S = q.k^T * scale (softcap: cap * tanh(s / cap)), forms
-//    P = exp(S - lse) with 0 at masked entries and past Sq or Skv, adds
-//    P^T.do to dv, forms dP = do.v^T and dS = P * (dP - D) (times
-//    1 - tanh^2 under a softcap) and adds dS^T.q * scale to dk.  The G
-//    heads' sums stay in the CTA's registers.
-//  * dq (fa_bwd_dq_*): one CTA per (q tile, head, batch row), heavy causal
-//    tiles first, looping over the kv tiles of the forward's range; it
-//    recomputes S, P, dP and dS the same way and adds dS.k * scale to dq.
-//  * Deterministic: every sum is taken in one fixed order in one CTA; no
-//    atomics, so two calls give the same bits.
-//  * Head dims: each CTA accumulates one slice of columns [c0, c0 + SW),
-//    SW at most 128 (dk and dv of a warp's 16 rows take SW floats a
-//    thread: 256 columns, with S and dP, would not fit in 255 registers;
-//    at 128 the dk/dv kernel takes 240, the build's log); q.k^T and do.v^T
-//    reduce over the full head dim, in chunks of SW columns staged through
-//    shared memory, zero past hd.  A head dim of one slice (32, 64, 128)
-//    keeps k and v (dk/dv) or q and do (dq) in shared memory for the CTA's
-//    life and double-buffers the tiles it loops over by cp.async; a wider
-//    one (256; any multiple of 32 above it) is launched once per slice of
-//    a built width (128, 64, 32), each stage loaded synchronously.
+// its memory is that of its inputs and outputs and a float32 dq sum.
 //
 // What bounds it on this card: 10 * hd FLOPs a kept (q, k) pair (S, dP,
-// dV, dK and dQ, 2 a multiply-add; S and dP are computed twice, once in
-// each pass) against q, k, v, o, do read and dq, dk, dv written: at the
-// internlm2-1.8b shape (B=8, H=16, KV=8, S=4096, hd=128, causal) 1.37e12
-// FLOPs against 0.6 GB, so the tensor-core rate bounds it (1.39 ms at
-// 989 TFLOP/s bf16).
+// dV, dK and dQ, 2 a multiply-add) against q, k, v, o, do read and dq, dk,
+// dv written: at the internlm2-1.8b shape (B=8, H=16, KV=8, S=4096,
+// hd=128, causal) 1.37e12 FLOPs against 0.6 GB, so the tensor-core rate
+// bounds it (1.39 ms at 989 TFLOP/s bf16), and only wgmma reaches that
+// rate.  Its design follows from that: each pair's S and dP computed once,
+// every product a wgmma fed by TMA, and dq, which every kv tile adds to,
+// summed without serialising the CTAs in a fixed order.
 //
-// bfloat16: the tensor cores, mma.sync.m16n8k16 (bf16 in, float32
-// accumulate), 4 warps of 16 rows (kv rows in dk/dv, q rows in dq),
-// fragments by ldmatrix from 16-B padded rows (fa_common.cuh).  Two
-// roundings to bf16, both in registers as the next product's A fragment:
-// P before P^T.do (dv), and dS before dS^T.q (dk) and dS.k (dq); every sum
-// is float32, and S and dP are float32 from the products.  D takes the
-// bf16 output o, as FlashAttention-2 does.
-// float32: the CUDA cores in full float32 (no TF32), 256 threads as a
-// 16 x 16 grid of 4 x 4 register tiles out of shared memory, q pre-scaled
-// in shared memory, P and dS staged through shared memory.
+// bfloat16, head dims 32 (run at 64), 64, 128 and 256: three launches.
+//  * fa_bwd_prep: lse * log2(e) and D = rowsum(do * o) (the bf16 output,
+//    as FlashAttention-2) in float32, padded to whole 64-row q tiles; the
+//    dq counters zeroed.
+//  * fa_bwd_fused: persistent CTAs (one an SM, 256 threads: two
+//    warpgroups, up to 255 registers a thread) claim kv tiles from a
+//    counter in global memory, every chain's (b, kv head) tile j before
+//    any tile j + 1, so progress never depends on the hardware's dispatch
+//    order.  The second warpgroup's thread 0 also issues the copies: K
+//    and V once a tile, and for each (head of the group, q tile) that
+//    reaches it Q, dO, lse' and D
+//    into a ring of 64-row stages (3 at hd 64, else 2), a stage refilled
+//    as soon as both warpgroups are past it, by TMA (4-D tensor maps of the
+//    (B, S, heads, hd) buffers' strided views, 128-B swizzle, zero past S
+//    and hd, so no stale value meets a P of 0) completing on mbarriers.
+//    A step (one q stage) computes S = Q.K^T and dP = dO.V^T once by wgmma
+//    from shared memory, P = exp2(s' - lse') (softcap and mask as the
+//    forward; the mask only where the block is not kept whole) and
+//    dS = P (dP - D) f in registers, both rounded to bf16 into shared
+//    memory, dV += P^T.dO and dK += dS^T.Q by wgmma (A transposed from
+//    shared memory; the sums stay in registers over the group's heads),
+//    and dq's share dS.K by wgmma.  Up to hd 128 a kv tile has 128 rows,
+//    64 a warpgroup, which holds dK and dV for them; at 256 a tile has 64
+//    rows and each warpgroup holds 128 of dK's and dV's columns and
+//    computes S and dP for 32 of its kv columns.
+//  * dq without order-dependent sums: each CTA adds its float32 share of
+//    a (b, h, q tile) into a float32 sum in global memory (tile-contiguous,
+//    in accumulator-fragment order) after every lower kv tile that reaches
+//    that q tile has added, behind a counter a q tile (the first adder
+//    stores).  Up to hd 128 the share is staged in shared memory and
+//    thread 0 adds it a step late in one bulk reduce, completes it a step
+//    later and releases its counter, the counter read as the share was
+//    staged: no wait meets an add issued in the same step.  At hd 256
+//    (no shared memory left to stage in) each thread adds its share with
+//    vector atomics, every thread fencing before the one release.  Every
+//    call sums in ascending kv-tile order and gives the same bits; no CTA
+//    waits on a tile claimed after it.
+//  * fa_bwd_dq_out: dq = sum * scale in bf16, 0 where no tile added.
+// Roundings to bf16: P before P^T.dO (dv), dS before dS^T.q (dk) and dS.k
+// (dq); every sum is float32, S and dP float32 from the products.
+//
+// bfloat16 above 256 (multiples of 32): the FlashAttention-2 split on
+// mma.sync m16n8k16, launched once per slice of 128, 64 or 32 columns
+// (fa_common.cuh), each recomputing S and dP over the full head dim; only
+// the 320 and 512 checks reach it.
+// float32: the CUDA cores in full float32 (no TF32), the same split, 256
+// threads as a 16 x 16 grid of 4 x 4 register tiles out of shared memory,
+// q pre-scaled in shared memory, P and dS staged through shared memory.
+
+#include <cuda.h>
+
+#include <type_traits>
 
 #include "fa_common.cuh"
+#include "fa_hopper.cuh"
 
 namespace {
 
@@ -437,9 +453,9 @@ int launch(const BwdArgs& a, int B, cudaStream_t stream) {
 
 }  // namespace f32
 
-// -- bfloat16: tensor cores (mma.sync m16n8k16) ---------------------------------
+// -- bfloat16, head dims above 256: slices on mma.sync m16n8k16 ----------------
 
-namespace bf16 {
+namespace sliced {
 
 using bf16_t = __nv_bfloat16;
 using fa::c_to_a;
@@ -455,25 +471,25 @@ using fa::smem_u32;
 
 constexpr int kThreads = 128;      // 4 warps of 16 rows
 
-// dk/dv: 64 kv rows a CTA; q tiles of BQ rows, double-buffered
+// dk/dv: 64 kv rows a CTA; q tiles of BQ rows
 template <int SW>
 struct KvTile {
   static constexpr int BKV = 64;
   static constexpr int BQ = SW == 128 ? 32 : 64;
   static constexpr int LDS = SW + 8;               // padded row, in bf16
   static constexpr int smem_bytes =
-      (2 * BKV + 4 * BQ) * LDS * (int)sizeof(bf16_t)
-      + 4 * BQ * (int)sizeof(float);
+      (2 * BKV + 2 * BQ) * LDS * (int)sizeof(bf16_t)
+      + 2 * BQ * (int)sizeof(float);
 };
 
-// dq: 64 q rows a CTA; kv tiles of BK rows, double-buffered
+// dq: 64 q rows a CTA; kv tiles of BK rows
 template <int SW>
 struct QTile {
   static constexpr int BQ = 64;
   static constexpr int BK = SW == 128 ? 32 : 64;
   static constexpr int LDS = SW + 8;
   static constexpr int smem_bytes =
-      (2 * BQ + 4 * BK) * LDS * (int)sizeof(bf16_t)
+      (2 * BQ + 2 * BK) * LDS * (int)sizeof(bf16_t)
       + 2 * BQ * (int)sizeof(float);
 };
 
@@ -491,7 +507,7 @@ __device__ __forceinline__ float score2(const BwdArgs& a, float s, float* f) {
   }
 }
 
-template <int SW, bool CAP>
+template <int SW>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkdv_bf16(const BwdArgs a) {
   using T = KvTile<SW>;
@@ -505,10 +521,10 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* Ks = reinterpret_cast<bf16_t*>(smem_raw);   // BKV x LDS
   bf16_t* Vs = Ks + BKV * LDS;                        // BKV x LDS
-  bf16_t* Qs = Vs + BKV * LDS;                        // 2 x BQ x LDS
-  bf16_t* dOs = Qs + 2 * BQ * LDS;                    // 2 x BQ x LDS
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LDS);  // 2 x BQ:
-  float* Ds = Ls + 2 * BQ;                            // lse log2(e); D
+  bf16_t* Qs = Vs + BKV * LDS;                        // BQ x LDS
+  bf16_t* dOs = Qs + BQ * LDS;                        // BQ x LDS
+  float* Ls = reinterpret_cast<float*>(dOs + BQ * LDS);  // BQ: lse log2(e)
+  float* Ds = Ls + BQ;                                // BQ: D
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -536,8 +552,8 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
                   vp + (ok ? row * a.vs[2] + col : 0) + cc * 8, ok);
     }
   };
-  // step s's q and do columns [col, col + SW) and its lse and D, stage st
-  auto load_q = [&](int s, int st, int col) {
+  // step s's q and do columns [col, col + SW) and its lse and D
+  auto load_q = [&](int s, int col) {
     const int h = kvh * G + s / nqt, q0 = (qt_begin + s % nqt) * BQ;
     const bf16_t* qp = static_cast<const bf16_t*>(a.q) + b * a.qs[0]
                        + h * a.qs[1];
@@ -547,7 +563,7 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
     for (int r = r0; r < BQ; r += RP) {
       const bool ok = in && q0 + r < a.Sq;
       const int64_t row = q0 + r;
-      const int at = (st * BQ + r) * LDS + cc * 8;
+      const int at = r * LDS + cc * 8;
       cp_async_16(smem_u32(Qs + at),
                   qp + (ok ? row * a.qs[2] + col : 0) + cc * 8, ok);
       cp_async_16(smem_u32(dOs + at),
@@ -556,8 +572,8 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
     const int64_t base = ((int64_t)b * a.H + h) * a.Sq;
     for (int i = tid; i < BQ; i += kThreads) {
       const bool ok = q0 + i < a.Sq;
-      Ls[st * BQ + i] = ok ? a.lse[base + q0 + i] * kLog2e : 0.f;
-      Ds[st * BQ + i] = ok ? a.delta[base + q0 + i] : 0.f;
+      Ls[i] = ok ? a.lse[base + q0 + i] * kLog2e : 0.f;
+      Ds[i] = ok ? a.delta[base + q0 + i] : 0.f;
     }
   };
 
@@ -571,7 +587,7 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
   const uint32_t o_t = fa::lane_t(dOs, LDS, lane);
 
   // S^T += K.Q^T and dP^T += V.dO^T over the SW columns in shared memory
-  auto sdp = [&](float (&sT)[NQ][4], float (&pT)[NQ][4], uint32_t so) {
+  auto sdp = [&](float (&sT)[NQ][4], float (&pT)[NQ][4]) {
 #pragma unroll
     for (int kk = 0; kk < SW / 16; ++kk) {
       uint32_t kf[4], vf[4];
@@ -580,10 +596,10 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
 #pragma unroll
       for (int np = 0; np < NQ / 2; ++np) {
         uint32_t x[4];
-        ldsm_x4(x, q_b + so + np * 16 * ROW + kk * 32);
+        ldsm_x4(x, q_b + np * 16 * ROW + kk * 32);
         mma(sT[2 * np], kf, x[0], x[1]);
         mma(sT[2 * np + 1], kf, x[2], x[3]);
-        ldsm_x4(x, o_b + so + np * 16 * ROW + kk * 32);
+        ldsm_x4(x, o_b + np * 16 * ROW + kk * 32);
         mma(pT[2 * np], vf, x[0], x[1]);
         mma(pT[2 * np + 1], vf, x[2], x[3]);
       }
@@ -596,46 +612,26 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[d][c] = dv[d][c] = 0.f;
 
-  const bool one = a.nch == 1;
-  if (one && nsteps > 0) {
-    load_kv(0);
-    load_q(0, 0, 0);
-    cp_async_commit();
-  }
   for (int s = 0; s < nsteps; ++s) {
-    const int st = one ? (s & 1) : 0;
-    const uint32_t so = st * BQ * ROW;
     float sT[NQ][4], pT[NQ][4];
 #pragma unroll
     for (int n = 0; n < NQ; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sT[n][c] = pT[n][c] = 0.f;
-    if (one) {
-      if (s + 1 < nsteps) {
-        load_q(s + 1, st ^ 1, 0);    // stage st ^ 1: read by step s - 1,
-        cp_async_commit();           // synced below
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      sdp(sT, pT, so);
-    } else {
-      for (int ch = 0; ch < a.nch; ++ch) {
-        __syncthreads();             // the last chunk (or step) is consumed
-        load_kv(ch * SW);
-        load_q(s, 0, ch * SW);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        sdp(sT, pT, 0);
-      }
-      __syncthreads();               // q and do's slice for dk and dv
-      load_q(s, 0, a.c0);
+    for (int ch = 0; ch < a.nch; ++ch) {
+      __syncthreads();               // the last chunk (or step) is consumed
+      load_kv(ch * SW);
+      load_q(s, ch * SW);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
+      sdp(sT, pT);
     }
+    __syncthreads();                 // q and do's slice for dk and dv
+    load_q(s, a.c0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
 
     // P^T = exp2(s' - lse'), masked to 0; dS^T = P^T (dP^T - D) f
     const int q0 = (qt_begin + s % nqt) * BQ;
@@ -646,11 +642,11 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
         const int kj = k0 + 16 * w + g + 8 * (c >> 1);
         const int il = 8 * n + 2 * t + (c & 1);
         float f;
-        const float x = score2<CAP>(a, sT[n][c], &f);
-        const float p = kept(a, q0 + il, kj)
-                            ? ex2(x - Ls[st * BQ + il]) : 0.f;
+        const float x = a.softcap > 0.f ? score2<true>(a, sT[n][c], &f)
+                                        : score2<false>(a, sT[n][c], &f);
+        const float p = kept(a, q0 + il, kj) ? ex2(x - Ls[il]) : 0.f;
         sT[n][c] = p;
-        pT[n][c] = p * (pT[n][c] - Ds[st * BQ + il]) * f;
+        pT[n][c] = p * (pT[n][c] - Ds[il]) * f;
       }
 
     // dV += P^T.dO, dK += dS^T.Q: P and dS rounded to bf16 as A fragments
@@ -662,17 +658,15 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
 #pragma unroll
       for (int dp = 0; dp < SW / 16; ++dp) {
         uint32_t x[4];
-        ldsm_x4_trans(x, o_t + so + kq * 16 * ROW + dp * 32);
+        ldsm_x4_trans(x, o_t + kq * 16 * ROW + dp * 32);
         mma(dv[2 * dp], pa, x[0], x[1]);
         mma(dv[2 * dp + 1], pa, x[2], x[3]);
-        ldsm_x4_trans(x, q_t + so + kq * 16 * ROW + dp * 32);
+        ldsm_x4_trans(x, q_t + kq * 16 * ROW + dp * 32);
         mma(dk[2 * dp], da, x[0], x[1]);
         mma(dk[2 * dp + 1], da, x[2], x[3]);
       }
     }
-    __syncthreads();                 // stage st is free for step s + 2
   }
-  cp_async_wait<0>();
 
   // epilogue: dk * scale and dv in bf16, rows < Skv, columns c0 + ...
   bf16_t* dkp = static_cast<bf16_t*>(a.dk) + b * a.dks[0] + kvh * a.dks[1]
@@ -693,7 +687,7 @@ fa_bwd_dkdv_bf16(const BwdArgs a) {
   }
 }
 
-template <int SW, bool CAP>
+template <int SW>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_bf16(const BwdArgs a) {
   using T = QTile<SW>;
@@ -707,9 +701,9 @@ fa_bwd_dq_bf16(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* Qs = reinterpret_cast<bf16_t*>(smem_raw);   // BQ x LDS
   bf16_t* dOs = Qs + BQ * LDS;                        // BQ x LDS
-  bf16_t* Ks = dOs + BQ * LDS;                        // 2 x BK x LDS
-  bf16_t* Vs = Ks + 2 * BK * LDS;                     // 2 x BK x LDS
-  float* Ls = reinterpret_cast<float*>(Vs + 2 * BK * LDS);   // BQ
+  bf16_t* Ks = dOs + BQ * LDS;                        // BK x LDS
+  bf16_t* Vs = Ks + BK * LDS;                         // BK x LDS
+  float* Ls = reinterpret_cast<float*>(Vs + BK * LDS);       // BQ
   float* Ds = Ls + BQ;                                // BQ
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -739,13 +733,13 @@ fa_bwd_dq_bf16(const BwdArgs a) {
                   op + (ok ? row * a.dos[2] + col : 0) + cc * 8, ok);
     }
   };
-  auto load_kv = [&](int kt, int st, int col) {
+  auto load_kv = [&](int kt, int col) {
     const int k0 = kt * BK;
     const bool in = col + cc * 8 < a.hd;
     for (int r = r0; r < BK; r += RP) {
       const bool ok = in && k0 + r < a.Skv;
       const int64_t row = k0 + r;
-      const int at = (st * BK + r) * LDS + cc * 8;
+      const int at = r * LDS + cc * 8;
       cp_async_16(smem_u32(Ks + at),
                   kp + (ok ? row * a.ks[2] + col : 0) + cc * 8, ok);
       cp_async_16(smem_u32(Vs + at),
@@ -761,12 +755,6 @@ fa_bwd_dq_bf16(const BwdArgs a) {
     const bool ok = q0 + i < a.Sq;
     Ls[i] = ok ? a.lse[base + q0 + i] * kLog2e : 0.f;
     Ds[i] = ok ? a.delta[base + q0 + i] : 0.f;
-  }
-  const bool one = a.nch == 1;
-  if (one) {
-    load_q(0);
-    if (kt_begin < kt_end) load_kv(kt_begin, 0, 0);
-    cp_async_commit();
   }
   __syncthreads();
   float lr[2], dr[2];               // rows g and g + 8 of the warp
@@ -784,7 +772,7 @@ fa_bwd_dq_bf16(const BwdArgs a) {
   const uint32_t v_b = fa::lane_b(Vs, LDS, lane);
   const uint32_t k_t = fa::lane_t(Ks, LDS, lane);
 
-  auto sdp = [&](float (&s)[NT][4], float (&dp)[NT][4], uint32_t so) {
+  auto sdp = [&](float (&s)[NT][4], float (&dp)[NT][4]) {
 #pragma unroll
     for (int kk = 0; kk < SW / 16; ++kk) {
       uint32_t qf[4], of[4];
@@ -793,10 +781,10 @@ fa_bwd_dq_bf16(const BwdArgs a) {
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t x[4];
-        ldsm_x4(x, k_b + so + np * 16 * ROW + kk * 32);
+        ldsm_x4(x, k_b + np * 16 * ROW + kk * 32);
         mma(s[2 * np], qf, x[0], x[1]);
         mma(s[2 * np + 1], qf, x[2], x[3]);
-        ldsm_x4(x, v_b + so + np * 16 * ROW + kk * 32);
+        ldsm_x4(x, v_b + np * 16 * ROW + kk * 32);
         mma(dp[2 * np], of, x[0], x[1]);
         mma(dp[2 * np + 1], of, x[2], x[3]);
       }
@@ -809,43 +797,27 @@ fa_bwd_dq_bf16(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dq[d][c] = 0.f;
 
-  int st = 0;
-  for (int kt = kt_begin; kt < kt_end; ++kt, st ^= 1) {
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-    uint32_t so;
-    if (one) {
-      if (kt + 1 < kt_end) {
-        load_kv(kt + 1, st ^ 1, 0);  // read by the last tile, synced below
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      so = st * BK * ROW;
-      sdp(s, dp, so);
-    } else {
-      for (int ch = 0; ch < a.nch; ++ch) {
-        __syncthreads();             // the last chunk (or tile) is consumed
-        load_q(ch * SW);
-        load_kv(kt, 0, ch * SW);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        sdp(s, dp, 0);
-      }
-      __syncthreads();               // k's slice for dq
-      load_kv(kt, 0, a.c0);
+    for (int ch = 0; ch < a.nch; ++ch) {
+      __syncthreads();               // the last chunk (or tile) is consumed
+      load_q(ch * SW);
+      load_kv(kt, ch * SW);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      so = 0;
+      sdp(s, dp);
     }
+    __syncthreads();                 // k's slice for dq
+    load_kv(kt, a.c0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
 
     // P = exp2(s' - lse'), masked to 0; dS = P (dP - D) f
 #pragma unroll
@@ -856,7 +828,8 @@ fa_bwd_dq_bf16(const BwdArgs a) {
         const int qi = q0 + 16 * w + g + 8 * r;
         const int kj = k0 + 8 * n + 2 * t + (c & 1);
         float f;
-        const float x = score2<CAP>(a, s[n][c], &f);
+        const float x = a.softcap > 0.f ? score2<true>(a, s[n][c], &f)
+                                        : score2<false>(a, s[n][c], &f);
         const float p = kept(a, qi, kj) ? ex2(x - lr[r]) : 0.f;
         dp[n][c] = p * (dp[n][c] - dr[r]) * f;
       }
@@ -869,14 +842,12 @@ fa_bwd_dq_bf16(const BwdArgs a) {
 #pragma unroll
       for (int d2 = 0; d2 < SW / 16; ++d2) {
         uint32_t x[4];
-        ldsm_x4_trans(x, k_t + so + kk * 16 * ROW + d2 * 32);
+        ldsm_x4_trans(x, k_t + kk * 16 * ROW + d2 * 32);
         mma(dq[2 * d2], da, x[0], x[1]);
         mma(dq[2 * d2 + 1], da, x[2], x[3]);
       }
     }
-    __syncthreads();                 // stage st is free for tile kt + 2
   }
-  cp_async_wait<0>();
 
   bf16_t* dqp = static_cast<bf16_t*>(a.dq) + b * a.dqs[0] + h * a.dqs[1]
                 + a.c0;
@@ -891,39 +862,694 @@ fa_bwd_dq_bf16(const BwdArgs a) {
   }
 }
 
-template <int SW, bool CAP>
-int launch_cap(const BwdArgs& a, int B, cudaStream_t stream) {
+template <int SW>
+int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkdv_bf16<SW, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dkdv_bf16<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       KvTile<SW>::smem_bytes);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      fa_bwd_dq_bf16<SW, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dq_bf16<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       QTile<SW>::smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dkdv_bf16<SW, CAP>
+  fa_bwd_dkdv_bf16<SW>
       <<<dim3((a.Skv + KvTile<SW>::BKV - 1) / KvTile<SW>::BKV, a.KV, B),
          kThreads, KvTile<SW>::smem_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fa_bwd_dq_bf16<SW, CAP>
+  fa_bwd_dq_bf16<SW>
       <<<dim3((a.Sq + QTile<SW>::BQ - 1) / QTile<SW>::BQ, a.H, B), kThreads,
          QTile<SW>::smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int SW>
-int launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  return a.softcap > 0.f ? launch_cap<SW, true>(a, B, stream)
-                         : launch_cap<SW, false>(a, B, stream);
+}  // namespace sliced
+
+// -- bfloat16, head dims up to 256: one fused wgmma/TMA kernel -----------------
+
+namespace fused {
+
+using bf16_t = __nv_bfloat16;
+using fa::ex2;
+using fa::pack;
+
+constexpr int kBQ = 64;            // q rows a ring stage
+constexpr int kBlk = kBQ * 128;    // bytes of a 64-column block of 64 rows
+constexpr int kMaxHd = 256;        // the widest head dim it takes
+// two warpgroups; thread 0 of the second also issues the copies, thread 0
+// of the first the tile claims and the dq adds
+constexpr int kThreads = 256;
+constexpr int kLoader = 128;
+
+// HD (64, 128, 256) the head dim padded to whole 64-column blocks (hd 32
+// runs at 64, TMA zero-filling columns 32..63).  Up to 128 the two
+// warpgroups split a 128-row kv tile (64 rows each, all columns of dK and
+// dV); at 256 they split dK's and dV's columns over a 64-row tile (128
+// each) and S's and dP's kv columns (32 each).  Shared memory: K, V, the
+// ring (Q, dO, lse', D a stage), P and dS, dq's staged shares, barriers.
+template <int HD>
+struct Cfg {
+  static constexpr bool KSPLIT = HD <= 128;
+  static constexpr int BKV = KSPLIT ? 128 : 64;
+  static constexpr int NB = HD / 64;                 // 64-column blocks
+  static constexpr int NST = HD == 64 ? 3 : 2;       // ring stages
+  static constexpr int KV_BLK = BKV * 128;           // bytes a K block
+  static constexpr int Q_BLK = kBQ * 128;            // bytes a Q block
+  static constexpr int K_BYTES = NB * KV_BLK;
+  static constexpr int Q_BYTES = NB * Q_BLK;
+  static constexpr int DS_BYTES = BKV * kBQ * 2;     // P or dS [q][kv]
+  // P and dS: double-buffered at 256; up to 128 once (the step's second
+  // barrier orders reuse), beside dq's share staged twice for its bulk add
+  static constexpr int N_DS = KSPLIT ? 2 : 4;
+  static constexpr int DQ_BYTES = KSPLIT ? kBQ * HD * 4 : 0;
+  static constexpr int OFF_V = K_BYTES;
+  static constexpr int OFF_Q = 2 * K_BYTES;          // stage: Q, then dO
+  static constexpr int OFF_DS = OFF_Q + NST * 2 * Q_BYTES;
+  static constexpr int OFF_DQ = OFF_DS + N_DS * DS_BYTES;
+  static constexpr int OFF_LD = OFF_DQ + 2 * DQ_BYTES;  // stage: L, D
+  static constexpr int OFF_BAR = OFF_LD + NST * 2 * kBQ * 4;
+  static constexpr int N_BAR = NST + 1;
+  static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 16 + 1024;  // + align
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+struct Params {
+  const float* ld;     // (B * H, 2, Sq_pad): lse * log2(e), then D
+  float* acc;          // (B, H, nqt, 64, HD): dq's float32 sums
+  int* counters;       // [0]: kv tiles claimed; [1 + (b H + h) nqt + qt]:
+                       // the kv tiles that have added to that dq tile
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int64_t dks[3], dvs[3];
+  int B, H, KV, Sq, Skv, hd, nqt, ntiles;
+  float scale, softcap;
+  int causal, window;  // window <= 0: none
+};
+
+__device__ __forceinline__ bool kept(const Params& p, int i, int j) {
+  return i < p.Sq && j < p.Skv && (!p.causal || j <= i)
+         && (p.window <= 0 || i - j < p.window);
 }
 
-}  // namespace bf16
+// the forward's log2-unit score and the softcap's 1 - tanh^2
+template <bool CAP>
+__device__ __forceinline__ float score2(const Params& p, float s, float* f) {
+  if constexpr (CAP) {
+    const float th = tanhf(s * p.scale / p.softcap);
+    *f = 1.f - th * th;
+    return th * p.softcap * kLog2e;
+  } else {
+    *f = 1.f;
+    return s * (p.scale * kLog2e);
+  }
+}
+
+// kv tile t of the claim order: every chain's (b, kv head) tile j before
+// any tile j + 1, so a tile's lower kv tiles are claimed before it (heavy
+// causal tiles first)
+struct Tile {
+  int j, b, kvh, k0, qt_begin, nqt, nsteps;
+};
+
+template <int BKV>
+__device__ __forceinline__ Tile tile_of(const Params& p, int t) {
+  Tile x;
+  const int chains = p.B * p.KV;
+  x.j = t / chains;
+  x.b = (t % chains) / p.KV;
+  x.kvh = t % p.KV;
+  x.k0 = x.j * BKV;
+  // q tiles [begin, end) that reach the kv tile, as q_range
+  const int begin = p.causal ? min(p.nqt, x.k0 / kBQ) : 0;
+  const int end = p.window > 0
+      ? min(p.nqt, (x.k0 + BKV - 1 + p.window - 1) / kBQ + 1) : p.nqt;
+  x.qt_begin = begin;
+  x.nqt = max(0, end - begin);
+  x.nsteps = (p.H / p.KV) * x.nqt;
+  return x;
+}
+
+// the lowest kv tile that reaches q tile qt: kv tiles [first, j) add to
+// dq tile qt before tile j does
+template <int BKV>
+__device__ __forceinline__ int first_adder(const Params& p, int qt) {
+  if (p.window <= 0) return 0;
+  const int num = qt * kBQ - BKV - p.window + 2;
+  return num <= 0 ? 0 : (num + BKV - 1) / BKV;
+}
+
+// A dq tile's float32 sum (64 rows x HD) is kept in fragment order, so
+// that a warp's writes are contiguous: column block cb (64 columns) of
+// warp w's 16 rows, register pair e (0..15) of its m64n64 accumulator,
+// lane l at float2 ((cb * 4 + w) * 16 + e) * 32 + l.
+__device__ __forceinline__ int frag2(int cb, int warp, int e, int lane) {
+  return ((cb * 4 + warp) * 16 + e) * 32 + lane;
+}
+
+// Up to hd 128 (the bulk route) thread 0 adds each step's staged dq
+// share one step late: at step m, while the step's first products run,
+// the add issued at step m - 1 completes and its counter `rel` is
+// released, then the share staged at step m - 1 (dq tile `add`, its
+// target, staging buffer `src`) is added once the lower kv tiles have, in
+// one bulk reduce (the first adder stores).  No add waits on anything
+// issued in the same step.  `seen` is the add's counter as loaded
+// (relaxed) when its share was staged, so that the load's latency is
+// hidden: a lower count is waited on.  The lower kv tiles' adds were
+// complete before their counts were released, so a count that reaches
+// the target orders this add after them.
+template <int HD>
+__device__ __forceinline__ void bulk_step(const Params& p, int rel, int add,
+                                          int target, int seen,
+                                          const void* src) {
+  if (rel >= 0) {
+    hop::bulk_wait();
+    hop::fence_proxy_global();
+    hop::red_release(p.counters + rel, 1);
+  }
+  if (add >= 0) {
+    if (seen < target) hop::wait_count(p.counters + add, target);
+    hop::fence_proxy_global();
+    float* dst = p.acc + static_cast<int64_t>(add - 1) * kBQ * HD;
+    if (target == 0)
+      hop::bulk_store(dst, src, kBQ * HD * 4);
+    else
+      hop::bulk_reduce_add(dst, src, kBQ * HD * 4);
+  }
+}
+
+// at hd 256 (the atomic route): every thread's adds to counter `c` done,
+// then one release add
+__device__ __forceinline__ void release_atomic(const Params& p, int c,
+                                               int ct) {
+  hop::fence_gpu();
+  hop::named_sync(2, kThreads);
+  if (ct == 0) hop::red_release(p.counters + c, 1);
+  __syncwarp();
+}
+
+// the atomic route: this warpgroup's 64 x 64 share (column block cb) of
+// dq tile c added after the lower kv tiles' adds (counter == target, when
+// `wait`); the first adder stores
+__device__ __forceinline__ void add_dq(const Params& p, const float (&dq)[32],
+                                       int c, int target, int cb, int HD,
+                                       int wt, int wg, bool wait) {
+  const int warp = wt >> 5, lane = wt & 31;
+  if (wait && target > 0) {
+    if (wt == 0) hop::wait_count(p.counters + c, target);
+    __syncwarp();
+    hop::named_sync(3 + wg, 128);
+  }
+  float2* tile = reinterpret_cast<float2*>(
+      p.acc + static_cast<int64_t>(c - 1) * kBQ * HD);
+  if (target == 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      tile[frag2(cb, warp, e, lane)] = make_float2(dq[2 * e], dq[2 * e + 1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      atomicAdd(tile + frag2(cb, warp, e, lane),
+                make_float2(dq[2 * e], dq[2 * e + 1]));
+  }
+}
+
+// dk * scale and dv of rows [row0, row0 + 64) in bf16, columns col0 + ...,
+// rows < Skv and columns < hd
+template <int R>
+__device__ __forceinline__ void store_dkdv(const Params& p, const Tile& x,
+                                           const float (&dk)[R],
+                                           const float (&dv)[R], int row0,
+                                           int col0, int wt) {
+  const int warp = wt >> 5, lane = wt & 31;
+  bf16_t* dkp = p.dk + x.b * p.dks[0] + x.kvh * p.dks[1];
+  bf16_t* dvp = p.dv + x.b * p.dvs[0] + x.kvh * p.dvs[1];
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int kj = x.k0 + row0 + 16 * warp + (lane >> 2) + 8 * ((i & 3) >> 1);
+    const int col = col0 + 8 * (i >> 2) + 2 * (lane & 3);
+    if (kj >= p.Skv || col >= p.hd) continue;
+    *reinterpret_cast<uint32_t*>(dkp + kj * p.dks[2] + col) =
+        pack(dk[i] * p.scale, dk[i + 1] * p.scale);
+    *reinterpret_cast<uint32_t*>(dvp + kj * p.dvs[2] + col) =
+        pack(dv[i], dv[i + 1]);
+  }
+}
+
+// 16-B chunk `chunk` of row r of a swizzled 128-B-row tile, + 4 t bytes
+__device__ __forceinline__ uint32_t swz(int r, int chunk, int t) {
+  return r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * t;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_fused(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using C = Cfg<HD>;
+  constexpr int BKV = C::BKV;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = sm;
+  unsigned char* Vs = sm + C::OFF_V;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* kv_full = full + C::NST;
+  volatile int* tile_slot = reinterpret_cast<volatile int*>(kv_full + 1);
+  auto q_at = [&](int st) { return sm + C::OFF_Q + st * 2 * C::Q_BYTES; };
+  auto ld_at = [&](int st) {
+    return reinterpret_cast<float*>(sm + C::OFF_LD + st * 2 * kBQ * 4);
+  };
+
+  const int ct = threadIdx.x;              // 0 .. 255
+  if (ct == 0) {
+    for (int s = 0; s < C::NST; ++s) hop::mbar_init(full + s, 1);
+    hop::mbar_init(kv_full, 1);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+  const int G = p.H / p.KV;
+  const int wg = ct >> 7;                  // warpgroup
+  const int wt = ct & 127;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t4 = lane & 3;
+  // S's and dP's kv columns of this warpgroup: up to hd 128 its 64 rows
+  // of the kv tile, at 256 32 of the tile's 64; its columns of dK and dV
+  constexpr int NS = C::KSPLIT ? 64 : 32;
+  constexpr int NKV = C::KSPLIT ? HD : 128;
+  const int kv_off = wg * NS;
+  const int col_off = C::KSPLIT ? 0 : wg * 128;
+  const uint64_t k_km = hop::desc(hop::smem(Ks), 16, 1024);
+  const uint64_t v_km = hop::desc(hop::smem(Vs), 16, 1024);
+  const uint64_t k_mn = hop::desc(hop::smem(Ks), C::KV_BLK, 1024);
+  // the dq tile whose add is pending (atomic route: its release; bulk
+  // route: its issue, with its target), and the bulk add to release
+  int step = 0, pending = -1, pending_target = 0, rel = -1, seen = 0;
+  uint32_t phases = 0, kv_phase = 0;       // a parity bit a ring stage
+
+  for (;;) {
+    // claim the next kv tile (thread 0, then all of the CTA: the last
+    // tile's reads of K, V and the ring are done)
+    if (ct == 0) *tile_slot = atomicAdd(p.counters, 1);
+    __syncwarp();
+    __syncthreads();
+    const int t = *tile_slot;
+    if (t >= p.ntiles) break;
+    const Tile x = tile_of<BKV>(p, t);
+    // step s's Q, dO, lse' and D into stage s % NST (the loader thread)
+    auto load_step = [&](int s) {
+      const int st = s % C::NST;
+      const int h = x.kvh * G + s / x.nqt;
+      const int q0 = (x.qt_begin + s % x.nqt) * kBQ;
+      hop::mbar_expect_tx(full + st, 2 * C::Q_BYTES + 2 * kBQ * 4);
+      unsigned char* qs = q_at(st);
+      for (int c = 0; c < C::NB; ++c) {
+        hop::tma_load_4d(qs + c * C::Q_BLK, &tq, full + st, 64 * c, q0, h,
+                         x.b);
+        hop::tma_load_4d(qs + C::Q_BYTES + c * C::Q_BLK, &tdo, full + st,
+                         64 * c, q0, h, x.b);
+      }
+      const int64_t row = (static_cast<int64_t>(x.b) * p.H + h) * 2
+                          * (p.nqt * kBQ) + q0;
+      hop::bulk_load(ld_at(st), p.ld + row, kBQ * 4, full + st);
+      hop::bulk_load(ld_at(st) + kBQ, p.ld + row + p.nqt * kBQ, kBQ * 4,
+                     full + st);
+    };
+    if (ct == kLoader) {
+      hop::mbar_expect_tx(kv_full, 2 * C::K_BYTES);
+      for (int c = 0; c < C::NB; ++c) {
+        hop::tma_load_4d(Ks + c * C::KV_BLK, &tk, kv_full, 64 * c, x.k0,
+                         x.kvh, x.b);
+        hop::tma_load_4d(Vs + c * C::KV_BLK, &tv, kv_full, 64 * c, x.k0,
+                         x.kvh, x.b);
+      }
+      for (int s = 0; s < min(C::NST, x.nsteps); ++s) load_step(s);
+    }
+    __syncwarp();
+    hop::mbar_wait_warp(kv_full, kv_phase);
+    kv_phase ^= 1;
+
+    float dk[NKV / 2], dv[NKV / 2];
+#pragma unroll
+    for (int i = 0; i < NKV / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int s = 0; s < x.nsteps; ++s, ++step) {
+      const int h = x.kvh * G + s / x.nqt;
+      const int qt = x.qt_begin + s % x.nqt;
+      const int q0 = qt * kBQ;
+      const int stage = s % C::NST;
+      hop::mbar_wait_warp(full + stage, (phases >> stage) & 1);
+      phases ^= 1u << stage;
+      const uint32_t q_s = hop::smem(q_at(stage));
+      const uint64_t q_km = hop::desc(q_s, 16, 1024);
+      const uint64_t o_km = hop::adv(q_km, C::Q_BYTES);
+      const uint64_t q_mn = hop::desc(q_s, C::Q_BLK, 1024);
+      const uint64_t o_mn = hop::adv(q_mn, C::Q_BYTES);
+      const float* Ls = ld_at(stage);
+      const float* Ds = Ls + kBQ;
+      const uint64_t kd = hop::opaque(k_km), vd = hop::opaque(v_km);
+
+      // S = Q.K^T, dP = dO.V^T: 64 q rows x this warpgroup's kv columns
+      float sc[NS / 2], dp[NS / 2];
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t qo = (kk >> 2) * C::Q_BLK + (kk & 3) * 32;
+        const uint32_t ko = (kk >> 2) * C::KV_BLK + kv_off * 128
+                            + (kk & 3) * 32;
+        if constexpr (NS == 64) {
+          hop::wgmma_ss_n64<0, 0>(sc, hop::adv(q_km, qo), hop::adv(kd, ko),
+                                  kk > 0);
+          hop::wgmma_ss_n64<0, 0>(dp, hop::adv(o_km, qo), hop::adv(vd, ko),
+                                  kk > 0);
+        } else {
+          hop::wgmma_ss_n32<0, 0>(sc, hop::adv(q_km, qo), hop::adv(kd, ko),
+                                  kk > 0);
+          hop::wgmma_ss_n32<0, 0>(dp, hop::adv(o_km, qo), hop::adv(vd, ko),
+                                  kk > 0);
+        }
+      }
+      hop::wg_commit();
+      if constexpr (!C::KSPLIT) {
+        if (pending >= 0) release_atomic(p, pending, ct);
+      } else {
+        if (ct == 0)
+          bulk_step<HD>(p, rel, pending, pending_target, seen,
+                        sm + C::OFF_DQ + ((step + 1) & 1) * C::DQ_BYTES);
+        __syncwarp();
+        rel = pending;
+      }
+      pending = -1;
+      hop::wg_wait<0>();
+      hop::keep(sc);
+      hop::keep(dp);
+
+      // P = exp2(s' - lse'), 0 where masked; dS = P (dP - D) f; both
+      // rounded to bf16 into shared memory as [q][kv] blocks of 64 kv
+      unsigned char* pb = sm + C::OFF_DS
+                          + (C::KSPLIT ? 0 : (step & 1) * 2 * C::DS_BYTES);
+      unsigned char* db = pb + C::DS_BYTES;
+      float lr[2], dr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        lr[hh] = Ls[16 * warp + g + 8 * hh];
+        dr[hh] = Ds[16 * warp + g + 8 * hh];
+      }
+      // the mask is evaluated only where this warpgroup's 64 x NS block
+      // is not kept whole (the diagonal, a window's edge, the tails)
+      auto elementwise = [&](auto masked, auto capped) {
+#pragma unroll
+        for (int i = 0; i < NS / 2; i += 2) {
+          const int hh = (i & 3) >> 1;
+          const int r = 16 * warp + g + 8 * hh;
+          const int kc = kv_off + 8 * (i >> 2) + 2 * t4;
+          float v[2][2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            float f;
+            const float s2 = score2<decltype(capped)::value>(p, sc[i + u],
+                                                              &f);
+            float pr = ex2(s2 - lr[hh]);
+            if constexpr (decltype(masked)::value)
+              pr = kept(p, q0 + r, x.k0 + kc + u) ? pr : 0.f;
+            v[0][u] = pr;
+            v[1][u] = pr * (dp[i + u] - dr[hh]) * f;
+          }
+          const uint32_t at = (kc >> 6) * kBlk + swz(r, (kc & 63) >> 3, t4);
+          *reinterpret_cast<uint32_t*>(pb + at) = pack(v[0][0], v[0][1]);
+          *reinterpret_cast<uint32_t*>(db + at) = pack(v[1][0], v[1][1]);
+        }
+      };
+      const int kv_lo = x.k0 + kv_off, kv_hi = kv_lo + NS - 1;
+      const bool whole = q0 + kBQ <= p.Sq && kv_hi < p.Skv
+                         && (!p.causal || kv_hi <= q0)
+                         && (p.window <= 0 || q0 + kBQ - 1 - kv_lo < p.window);
+      using no = std::false_type;
+      using yes = std::true_type;
+      if (p.softcap > 0.f) {
+        if (whole)
+          elementwise(no(), yes());
+        else
+          elementwise(yes(), yes());
+      } else if (whole) {
+        elementwise(no(), no());
+      } else {
+        elementwise(yes(), no());
+      }
+      hop::fence_async_smem();
+      // all of P and dS written; both warpgroups are past step s - 1, so
+      // its stage takes step s - 1 + NST
+      hop::named_sync(1, kThreads);
+      if (ct == kLoader && s >= 1 && s - 1 + C::NST < x.nsteps)
+        load_step(s - 1 + C::NST);
+      __syncwarp();
+
+      // dV += P^T.dO, dK += dS^T.Q: this warpgroup's kv rows x its
+      // columns (A MN-major from the [q][kv] block)
+      const uint32_t blk = C::KSPLIT ? wg * kBlk : 0;
+      const uint64_t p_mn = hop::desc(hop::smem(pb) + blk, kBlk, 1024);
+      const uint64_t ds_mn = hop::desc(hop::smem(db) + blk, kBlk, 1024);
+      hop::wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t o = (col_off / 64) * C::Q_BLK + kq * 2048;
+        if constexpr (NKV == 128) {
+          hop::wgmma_ss_n128<1, 1>(dv, hop::adv(p_mn, kq * 2048),
+                                   hop::adv(o_mn, o), 1);
+          hop::wgmma_ss_n128<1, 1>(dk, hop::adv(ds_mn, kq * 2048),
+                                   hop::adv(q_mn, o), 1);
+        } else {
+          hop::wgmma_ss_n64<1, 1>(dv, hop::adv(p_mn, kq * 2048),
+                                  hop::adv(o_mn, o), 1);
+          hop::wgmma_ss_n64<1, 1>(dk, hop::adv(ds_mn, kq * 2048),
+                                  hop::adv(q_mn, o), 1);
+        }
+      }
+      hop::wg_commit();
+
+      // dq's share dS.K (A K-major over the kv tile, B MN-major), added
+      // to its (b, h, q tile) sum
+      const uint64_t ds_km = hop::desc(hop::smem(db), 16, 1024);
+      const uint64_t kb = hop::opaque(k_mn);
+      const int c = 1 + (x.b * p.H + h) * p.nqt + qt;
+      const int target = x.j - first_adder<BKV>(p, qt);
+      if constexpr (C::KSPLIT) {
+        // columns [wg HD/2, + HD/2) over the tile's 128 kv rows
+        float dq[HD / 4];
+        const uint32_t cb = HD == 128 ? wg * C::KV_BLK : wg * 64;
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+          const uint32_t ao = (kk >> 2) * kBlk + (kk & 3) * 32;
+          if constexpr (HD == 128)
+            hop::wgmma_ss_n64<0, 1>(dq, hop::adv(ds_km, ao),
+                                    hop::adv(kb, cb + kk * 2048), kk > 0);
+          else
+            hop::wgmma_ss_n32<0, 1>(dq, hop::adv(ds_km, ao),
+                                    hop::adv(kb, cb + kk * 2048), kk > 0);
+        }
+        hop::wg_commit();
+        hop::wg_wait<0>();
+        hop::keep(dv);
+        hop::keep(dk);
+        hop::keep(dq);
+        // staged in fragment order; thread 0 adds the tile in one bulk
+        // reduce at the next step (bulk_add)
+        float2* st = reinterpret_cast<float2*>(
+            sm + C::OFF_DQ + (step & 1) * C::DQ_BYTES);
+#pragma unroll
+        for (int e = 0; e < HD / 8; ++e)
+          st[frag2(HD == 128 ? wg : 0, warp, HD == 128 ? e : 8 * wg + e,
+                   lane)] = make_float2(dq[2 * e], dq[2 * e + 1]);
+        hop::fence_async_smem();
+        if (ct == 0) seen = hop::ld_relaxed(p.counters + c);
+        hop::named_sync(2, kThreads);
+      } else {
+        // columns [128 wg, + 128) in two halves of 64
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float dq[32];
+          hop::wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hop::wgmma_ss_n64<0, 1>(
+                dq, hop::adv(ds_km, kk * 32),
+                hop::adv(kb, (2 * wg + half) * C::KV_BLK + kk * 2048),
+                kk > 0);
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::keep(dq);
+          add_dq(p, dq, c, target, 2 * wg + half, HD, wt, wg, half == 0);
+        }
+        hop::keep(dv);
+        hop::keep(dk);
+      }
+      pending = c;
+      pending_target = target;
+    }
+    if constexpr (!C::KSPLIT) {
+      if (pending >= 0) release_atomic(p, pending, ct);
+    } else if (ct == 0) {                  // both outstanding adds done
+      bulk_step<HD>(p, rel, pending, pending_target, seen,
+                    sm + C::OFF_DQ + ((step + 1) & 1) * C::DQ_BYTES);
+      bulk_step<HD>(p, pending, -1, 0, 0, nullptr);
+    }
+    __syncwarp();
+    pending = rel = -1;
+    store_dkdv(p, x, dk, dv, C::KSPLIT ? wg * 64 : 0, col_off, wt);
+  }
+}
+
+// lse' = lse * log2(e) and D = rowsum(do * o), one warp a (b, h, i) row of
+// the padded (B * H, 2, Sq_pad) layout, 0 past Sq; and the counters zeroed
+__global__ void __launch_bounds__(128)
+fa_bwd_prep(const BwdArgs a, float* ld, int* counters, int sq_pad,
+            int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int i = row % sq_pad, bh = row / sq_pad, h = bh % a.H, b = bh / a.H;
+  float dsum = 0.f, l = 0.f;
+  if (i < a.Sq) {
+    const bf16_t* o = static_cast<const bf16_t*>(a.o) + b * a.os[0]
+                      + h * a.os[1] + i * a.os[2];
+    const bf16_t* d = static_cast<const bf16_t*>(a.dout) + b * a.dos[0]
+                      + h * a.dos[1] + i * a.dos[2];
+    for (int c = lane; c < a.hd; c += 32)
+      dsum = fmaf(__bfloat162float(o[c]), __bfloat162float(d[c]), dsum);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
+    l = a.lse[(static_cast<int64_t>(b) * a.H + h) * a.Sq + i] * kLog2e;
+  }
+  if (lane == 0) {
+    ld[(static_cast<int64_t>(bh) * 2) * sq_pad + i] = l;
+    ld[(static_cast<int64_t>(bh) * 2 + 1) * sq_pad + i] = dsum;
+    if (i % kBQ == 0) counters[1 + row / kBQ] = 0;
+    if (row == 0) counters[0] = 0;
+  }
+}
+
+// dq = sum * scale in bf16, one warp a (b, h, i) row; 0 where no kv tile
+// reached the row's q tile
+template <int HD>
+__global__ void __launch_bounds__(128)
+fa_bwd_dq_out(const BwdArgs a, const Params p, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int i = row % a.Sq, bh = row / a.Sq, h = bh % a.H, b = bh / a.H;
+  const int c = 1 + bh * p.nqt + i / kBQ;
+  const bool seen = p.counters[c] > 0;
+  const float2* src = reinterpret_cast<const float2*>(
+      p.acc + static_cast<int64_t>(c - 1) * kBQ * HD);
+  const int r = i % kBQ;
+  bf16_t* dq = static_cast<bf16_t*>(a.dq) + b * a.dqs[0] + h * a.dqs[1]
+               + i * a.dqs[2];
+  for (int col = 2 * lane; col < a.hd; col += 64) {
+    // row r, columns col, col + 1 in fragment order (frag2)
+    const int cc = col & 63;
+    const float2 v = src[frag2(col >> 6, r >> 4, 2 * (cc >> 3) + ((r >> 3) & 1),
+                               4 * (r & 7) + ((cc & 7) >> 1))];
+    *reinterpret_cast<uint32_t*>(dq + col) =
+        seen ? pack(v.x * a.scale, v.y * a.scale) : 0u;
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library links nothing beyond the runtime
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a (B, heads, S, hd) bf16 view with (b, h, s) element strides `st`, read
+// in boxes of 64 columns x `rows` rows, 128-B swizzled, zero past S and hd
+bool tensor_map(CUtensorMap* m, const void* ptr, int B, int heads, int S,
+                int hd, const int64_t* st, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const BwdArgs& a, Params& p, int B, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int nkv = (a.Skv + C::BKV - 1) / C::BKV;
+  p.ntiles = nkv * B * a.KV;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  static int sms[64] = {};             // SMs a device, asked once
+  if (err == cudaSuccess && dev < 64 && sms[dev] == 0)
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess && (dev >= 64 || sms[dev] <= 0))
+    err = cudaErrorInvalidValue;
+  static bool sized[64] = {};          // the attribute, once a device
+  if (err == cudaSuccess && !sized[dev]) {
+    err = cudaFuncSetAttribute(fa_bwd_fused<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    sized[dev] = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int sq_pad = p.nqt * kBQ;
+  const int prep_rows = B * a.H * sq_pad;
+  fa_bwd_prep<<<(prep_rows + 3) / 4, 128, 0, stream>>>(
+      a, const_cast<float*>(p.ld), p.counters, sq_pad, prep_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // encoded while the first pass runs
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, a.q, B, a.H, a.Sq, a.hd, a.qs, kBQ)
+      || !tensor_map(&tk, a.k, B, a.KV, a.Skv, a.hd, a.ks, C::BKV)
+      || !tensor_map(&tv, a.v, B, a.KV, a.Skv, a.hd, a.vs, C::BKV)
+      || !tensor_map(&tdo, a.dout, B, a.H, a.Sq, a.hd, a.dos, kBQ))
+    return (int)cudaErrorInvalidValue;
+  fa_bwd_fused<HD><<<min(p.ntiles, sms[dev]), kThreads, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int rows = B * a.H * a.Sq;
+  fa_bwd_dq_out<HD><<<(rows + 3) / 4, 128, 0, stream>>>(a, p, rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fused
 
 template <int SW>
 int launch(const BwdArgs& a, int dtype, int B, cudaStream_t stream) {
   if (dtype == 0) return f32::launch<SW>(a, B, stream);
-  if (dtype == 1) return bf16::launch<SW>(a, B, stream);
+  if (dtype == 1) return sliced::launch<SW>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -938,16 +1564,22 @@ extern "C" {
 // (B, H, Sq, hd), dk/dv (B, KV, Skv, hd), all of one type (dtype 0:
 // float32, CUDA-core kernels; 1: bfloat16, tensor-core kernels), hd
 // contiguous; hd 32, 64, 128, 256, or above 256 a multiple of 32.  lse:
-// the forward's float32 (B, H, Sq), contiguous; delta: float32 scratch of
-// B * H * Sq.  strides: 24 int64, the (b, h, s) strides of q, k, v, o,
-// dout, dq, dk and dv in elements; for bfloat16 every pointer 16-B aligned
-// and every stride a multiple of 8.  window <= 0: none; softcap <= 0: none.
-// Returns the first launch error, else cudaGetLastError() after the last.
+// the forward's float32 (B, H, Sq), contiguous.  strides: 24 int64, the
+// (b, h, s) strides of q, k, v, o, dout, dq, dk and dv in elements; for
+// bfloat16 every pointer 16-B aligned and every stride a multiple of 8.
+// window <= 0: none; softcap <= 0: none.  Scratch, with nqt = ceil(Sq /
+// 64) and HD = max(hd, 64): bfloat16 up to hd 256, delta float32 of
+// B * H * 2 * nqt * 64 (lse', D), acc float32 of B * H * nqt * 64 * HD
+// and counters int32 of 1 + B * H * nqt (the first pass zeroes acc and
+// counters); otherwise delta of B * H * Sq, acc and counters unused.
+// Returns the first launch error,
+// else cudaGetLastError() after the last.
 int fa_backward(const void* q, const void* k, const void* v, const void* o,
                 const float* lse, const void* dout, void* dq, void* dk,
-                void* dv, float* delta, int dtype, int B, int H, int KV,
-                int Sq, int Skv, int hd, const int64_t* strides, float scale,
-                int causal, int window, float softcap, void* stream) {
+                void* dv, float* delta, float* acc, int* counters,
+                int dtype, int B, int H, int KV, int Sq, int Skv, int hd,
+                const int64_t* strides, float scale, int causal, int window,
+                float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0) return (int)cudaSuccess;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (hd <= 0 || hd % 32 || (hd < 256 && (hd & (hd - 1))))
@@ -962,6 +1594,26 @@ int fa_backward(const void* q, const void* k, const void* v, const void* o,
   a.scale = scale; a.softcap = softcap; a.causal = causal; a.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
+  if (dtype == 1 && hd <= fused::kMaxHd) {
+    fused::Params p;
+    p.ld = delta; p.acc = acc; p.counters = counters;
+    p.dk = static_cast<__nv_bfloat16*>(dk);
+    p.dv = static_cast<__nv_bfloat16*>(dv);
+    for (int i = 0; i < 3; ++i) {
+      p.dks[i] = a.dks[i];
+      p.dvs[i] = a.dvs[i];
+    }
+    p.B = B; p.H = H; p.KV = KV; p.Sq = Sq; p.Skv = Skv; p.hd = hd;
+    p.nqt = (Sq + fused::kBQ - 1) / fused::kBQ;
+    p.scale = scale; p.softcap = softcap; p.causal = causal;
+    p.window = window;
+    switch (hd) {
+      case 32:
+      case 64: return fused::launch<64>(a, p, B, s);
+      case 128: return fused::launch<128>(a, p, B, s);
+      default: return fused::launch<256>(a, p, B, s);
+    }
+  }
   const int rows = B * H * Sq;
   if (dtype == 0)
     fa_bwd_delta<float><<<(rows + 3) / 4, 128, 0, s>>>(a, rows);

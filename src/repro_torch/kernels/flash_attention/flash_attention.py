@@ -5,13 +5,18 @@ The forward is the port of the Pallas TPU kernel in the JAX package's
 ``kernels/flash_attention/flash_attention.py``: online-softmax attention
 with GQA, causal tile skipping, a sliding window, a tanh softcap and the kv
 tail masked.  The backward has no TPU counterpart (the reference trains
-through jnp attention): it is the FlashAttention-2 split, recomputing P
-tile by tile from the forward's row log-sum-exp.  The kernels live in
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (design
-notes there) and are built at first use (:data:`LIB`, :data:`LIB_BWD`, see
-:mod:`.._build`): the dtype picks one — bfloat16 runs on the tensor cores
-(``mma.sync``; P, and in the backward dS, rounded to bfloat16 before their
-products), float32 on the CUDA cores in full float32.
+through jnp attention): it recomputes P tile by tile from the forward's
+row log-sum-exp.  The kernels live in ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` (design notes there) and are built at
+first use (:data:`LIB`, :data:`LIB_BWD`, see :mod:`.._build`): the dtype
+picks one — bfloat16 runs on the tensor cores (P, and in the backward dS,
+rounded to bfloat16 before their products), float32 on the CUDA cores in
+full float32.  The bf16 backward up to head dim 256 is one fused
+``wgmma``/TMA kernel between a D pass and a dq pass: persistent CTAs
+claim kv tiles, compute S and dP once a (q, k) pair, and add dq's shares
+into a float32 sum in ascending kv-tile order (:func:`backward_scratch`),
+so two calls give the same bits; above 256 it is the FlashAttention-2
+split on ``mma.sync``, one launch a slice of columns.
 
 :func:`flash_attention` and :func:`flash_attention_backward` take CUDA
 tensors only.  They read their inputs through their strides (the last
@@ -66,7 +71,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fa_backward.argtypes = [p] * 10 + [i32] * 7 + [p, f32, i32, i32,
+    lib.fa_backward.argtypes = [p] * 12 + [i32] * 7 + [p, f32, i32, i32,
                                                        f32, p]
     lib.fa_backward.restype = i32
 
@@ -75,7 +80,25 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 LIB = CudaLibrary("flash_attention", _CSRC / "flash_attention.cu", _declare,
                   deps=[_CSRC / "fa_common.cuh"])
 LIB_BWD = CudaLibrary("flash_attention_bwd", _CSRC / "flash_attention_bwd.cu",
-                      _declare_bwd, deps=[_CSRC / "fa_common.cuh"])
+                      _declare_bwd, deps=[_CSRC / "fa_common.cuh",
+                                          _CSRC / "fa_hopper.cuh"])
+
+#: q rows of a backward q tile; the fused bf16 kernel's widest head dim
+BWD_Q_TILE, FUSED_MAX_HD = 64, 256
+
+
+def backward_scratch(dtype: torch.dtype, B: int, H: int, Sq: int,
+                     hd: int) -> Tuple[int, int, int]:
+    """Elements of the backward's float32 ``delta`` and ``acc`` and its
+    int32 ``counters`` (``csrc/flash_attention_bwd.cu`` ``fa_backward``,
+    whose first pass zeroes ``acc`` and ``counters``).  The fused bf16 kernel (head dims up to 256) takes
+    lse' and D padded to whole 64-row q tiles, dq's float32 sum a (b, h, q
+    tile) at the head dim padded to 64, one counter a (b, h, q tile) and
+    the kv tiles' claim counter; otherwise D alone."""
+    if dtype == torch.bfloat16 and hd <= FUSED_MAX_HD:
+        rows = B * H * -(-Sq // BWD_Q_TILE) * BWD_Q_TILE
+        return 2 * rows, rows * max(hd, 64), 1 + rows // BWD_Q_TILE
+    return B * H * Sq, 0, 0
 
 
 def kernel_takes_head_dim(hd: int) -> bool:
@@ -217,14 +240,21 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if Sq == 0:
         return views[0], dk.zero_().transpose(1, 2), \
             dv.zero_().transpose(1, 2)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # one allocation: delta and acc (16-B aligned: delta's length is a
+    # multiple of 4), then the int32 counters
+    n_delta, n_acc, n_counters = backward_scratch(q.dtype, B, H, Sq, hd)
+    work = torch.empty(n_delta + n_acc + n_counters, dtype=torch.float32,
+                       device=q.device)
+    delta, acc = work[:n_delta], work[n_delta:n_delta + n_acc]
+    counters = work[n_delta + n_acc:].view(torch.int32)
     lib = LIB_BWD.lib()
     with torch.cuda.device(q.device):
         err = lib.fa_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq,
-            Skv, hd, _strides(q, k, v, out, dout, *views), float(scale),
+            dv.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+            counters.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sq, Skv, hd,
+            _strides(q, k, v, out, dout, *views), float(scale),
             int(causal), int(window) if window is not None else 0,
             float(softcap), stream())
     raise_on(err, "flash_attention_backward")

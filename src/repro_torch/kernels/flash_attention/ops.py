@@ -8,10 +8,13 @@ choice follows the tensor's device and nothing else; the JAX op's
 ``interpret=``, ``use_kernel=`` and block-size switches have no
 counterpart.
 
-The gradient on the card is the backward kernel's (the FlashAttention-2
-split, ``csrc/flash_attention_bwd.cu``): the forward saves q, k, v, its
-output and each row's log-sum-exp, and the backward recomputes P tile by
-tile from them, so no (Sq, Skv) score matrix is held in either direction.
+The gradient on the card is the backward kernels' (``csrc/flash_attention_
+bwd.cu``: in bf16 up to head dim 256 one fused wgmma/TMA kernel between a
+D pass and a dq pass, else the FlashAttention-2 split): the forward saves
+q, k, v, its output and each row's log-sum-exp, and the backward
+recomputes P tile by tile from them, so no (Sq, Skv) score matrix is held
+in either direction (the bf16 dq is summed in float32 scratch of
+B·H·Sq·hd·4 bytes).
 In bfloat16 the forward rounds P before P·V and the backward rounds P and
 dS before their products, each within the bf16 limits the tests and
 ``chip_smoke.py`` phase 5 hold it to; in float32 both run in full float32.

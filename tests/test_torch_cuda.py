@@ -1012,6 +1012,15 @@ FA_BWD_SHAPES = [
     (1, 2, 1, 33, 97, 128, False, None, 0.0),
     (1, 4, 2, 130, 130, 320, True, None, 0.0),
     (1, 4, 2, 96, 96, 512, True, 50, 30.0),
+    # the fused bf16 kernel's route (head dims up to 256, persistent CTAs,
+    # dq summed behind its counters): each head dim with a softcap or a
+    # window, MQA group 16, kv and q tails past whole tiles, Sq != Skv
+    (2, 4, 2, 150, 150, 32, True, 48, 30.0),
+    (1, 16, 1, 200, 330, 64, False, None, 50.0),
+    (1, 16, 1, 300, 300, 128, True, 100, 0.0),
+    (2, 4, 4, 257, 257, 128, True, None, 30.0),
+    (1, 16, 1, 190, 190, 256, True, 64, 20.0),
+    (1, 4, 2, 129, 260, 256, False, None, 0.0),
 ]
 
 
@@ -1041,6 +1050,30 @@ def test_cuda_flash_backward_matches_twins_vjp(cuda, case, dtype):
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ins, **kw), ins, dout)
     _kernel_grads_close(got, want, dtype)
+
+
+def test_cuda_fused_backward_more_tiles_than_ctas(cuda):
+    """internlm2-1.8b's heads at 16384 tokens (phase 12 (d)): 1024 kv
+    tiles over at most one persistent CTA an SM, every dq tile summed over
+    up to 128 kv tiles behind its counter.  Held to SDPA's backward at
+    phase 5's limits (the twin's float32 scores would take 17 GB a
+    tensor); two calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, dout = (torch.randn((1, 16384, n, 128), generator=g,
+                                 device=cuda).bfloat16().transpose(1, 2)
+                     for n in (16, 8, 8, 16))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                        causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    sd = torch.nn.functional.scaled_dot_product_attention(
+        *ins, is_causal=True, enable_gqa=True)
+    want = torch.autograd.grad(sd, ins, dout)
+    _kernel_grads_close(got, want, torch.bfloat16)
 
 
 def test_cuda_flash_backward_fake_op_matches_the_kernel(cuda):

@@ -323,3 +323,218 @@ def test_backward_launcher_rejects_what_the_kernels_do_not_take():
     assert tk.kernel_takes_head_dim(320) and tk.kernel_takes_head_dim(512)
     assert not tk.kernel_takes_head_dim(96)
     assert not tk.kernel_takes_head_dim(300)
+
+
+# -- the fused bf16 kernel's schedule, modelled -------------------------------------
+#
+# csrc/flash_attention_bwd.cu ``fused``: persistent CTAs claim kv tiles in
+# the order t -> (j = t // (B KV), chain t % (B KV)); a tile visits, head by
+# head of its group, the 64-row q tiles that reach it; each visit adds its
+# dq share into a (b, h, q tile) float32 sum once ``target`` = j -
+# first_adder(qt) lower kv tiles have added, releasing its own add one step
+# later (at the next visit's start, or at the tile's end).
+
+BQ = 64
+
+
+def _bkv(hd):
+    return 128 if hd <= 128 else 64
+
+
+def _q_range(k0, bkv, nqt, causal, window):
+    begin = min(nqt, k0 // BQ) if causal else 0
+    end = min(nqt, (k0 + bkv - 1 + window - 1) // BQ + 1) if window \
+        else nqt
+    return begin, max(begin, end)
+
+
+def _first_adder(qt, bkv, window):
+    if not window:
+        return 0
+    num = qt * BQ - bkv - window + 2
+    return 0 if num <= 0 else -(-num // bkv)
+
+
+def fused_schedule(B, H, KV, Sq, Skv, hd, causal, window):
+    """The claim order's tiles as (t, j, b, kvh, k0, visits), a visit (h,
+    qt, target)."""
+    bkv, nqt, G = _bkv(hd), -(-Sq // BQ), H // KV
+    tiles = []
+    for t in range(-(-Skv // bkv) * B * KV):
+        j, b, kvh = t // (B * KV), t % (B * KV) // KV, t % KV
+        begin, end = _q_range(j * bkv, bkv, nqt, causal, window)
+        visits = [(kvh * G + h, qt, j - _first_adder(qt, bkv, window))
+                  for h in range(G) for qt in range(begin, end)]
+        tiles.append((t, j, b, kvh, j * bkv, visits))
+    return tiles
+
+
+def run_schedule(tiles, n_ctas):
+    """Steps ``n_ctas`` persistent CTAs through the schedule in lockstep
+    rounds, each claiming the next tile when its last one ends and
+    waiting at a visit until its counter reaches the target; returns each
+    (b, h, q tile)'s adders in the order they added, raising on a round
+    in which no CTA can move (a deadlock)."""
+    counters, adds = {}, {}
+    queue = list(tiles)
+    ctas = [None] * n_ctas          # [tile, next visit, pending counter]
+    while True:
+        for c in range(n_ctas):
+            if ctas[c] is None and queue:
+                ctas[c] = [queue.pop(0), 0, None]
+        if all(x is None for x in ctas):
+            return adds
+        moved = False
+        for c, x in enumerate(ctas):
+            if x is None:
+                continue
+            (t, j, b, kvh, k0, visits), s, pending = x
+            if s == len(visits):    # the tile's end releases its last add
+                if pending is not None:
+                    counters[pending] = counters.get(pending, 0) + 1
+                ctas[c] = None
+                moved = True
+                continue
+            h, qt, target = visits[s]
+            if pending is not None:  # the next visit's start releases it
+                counters[pending] = counters.get(pending, 0) + 1
+                x[2] = pending = None
+                moved = True
+            key = (b, h, qt)
+            if counters.get(key, 0) < target:
+                continue
+            assert counters.get(key, 0) == target, (key, target)
+            adds.setdefault(key, []).append(j)
+            x[1], x[2] = s + 1, key
+            moved = True
+        if not moved:
+            raise AssertionError("no CTA can move: the schedule deadlocks")
+
+
+FUSED_CASES = [c for c in CASES if c[5] <= 256]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_schedule_visits_sums_and_claims(case):
+    """Every kept (q, k) pair is visited exactly once; each (b, h, q tile)
+    gets its kv tiles' adds in ascending order, its counter's target
+    being the adds before it; no visit waits on a tile claimed after its
+    own; and persistent CTAs (1, 3 and 8 of them) run the schedule to its
+    end."""
+    B, H, KV, Sq, Skv, hd, causal, window, _ = case
+    hd = max(hd, 32)
+    tiles = fused_schedule(B, H, KV, Sq, Skv, hd, causal, window)
+    bkv = _bkv(hd)
+    qi, kj = np.arange(Sq)[:, None], np.arange(Skv)[None, :]
+    keep = np.ones((Sq, Skv), bool)
+    if causal:
+        keep &= kj <= qi
+    if window:
+        keep &= qi - kj < window
+    seen = np.zeros((B, H, Sq, Skv), np.int64)
+    claimed = {}
+    for t, j, b, kvh, k0, visits in tiles:
+        claimed[(b, kvh, j)] = t
+        for h, qt, _ in visits:
+            seen[b, h, qt * BQ:(qt + 1) * BQ, k0:k0 + bkv] += 1
+    assert (seen[:, :, keep] == 1).all()
+    adders = {}
+    for t, j, b, kvh, k0, visits in tiles:
+        for h, qt, target in visits:
+            adders.setdefault((b, h, qt), []).append((j, target, t, kvh))
+    for (b, h, qt), lst in adders.items():
+        js = [j for j, _, _, _ in lst]
+        assert js == sorted(js) and js == list(range(js[0], js[-1] + 1))
+        for n, (j, target, t, kvh) in enumerate(lst):
+            assert target == n
+            assert all(claimed[(b, kvh, j2)] < t for j2 in js[:n])
+    for n_ctas in (1, 3, 8):
+        adds = run_schedule(tiles, n_ctas)
+        assert adds == {key: [j for j, _, _, _ in lst]
+                        for key, lst in adders.items()}
+
+
+def emulate_fused_backward(q, k, v, out, lse, dout, *, causal, window,
+                           softcap):
+    """The fused kernel's arithmetic visit by visit, in the schedule's
+    order: S^T and dP^T float32 products of a kv tile and a 64-row q tile,
+    P^T = exp2(s' - lse'), dS^T = P^T (dP^T - D) f, P and dS rounded to
+    bf16 before dV += P^T.dO, dK += dS^T.Q and dq's share dS.K, each
+    share added to its (b, h, q tile) float32 sum in ascending kv-tile
+    order (the first stores), dq = sum * scale, 0 where no tile added."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    log2e = 1.4426950408889634
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1)
+    tiles = fused_schedule(B, H, KV, Sq, Skv, max(hd, 32), causal, window)
+    bkv = _bkv(max(hd, 32))
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    acc = {}
+    adds = run_schedule(tiles, 3)
+    shares = {}
+    for t, j, b, kvh, k0, visits in tiles:
+        ks, vs = kf[b, kvh, k0:k0 + bkv], vf[b, kvh, k0:k0 + bkv]
+        kj = torch.arange(k0, k0 + ks.shape[0])[:, None]
+        for h, qt, _ in visits:
+            rows = slice(qt * BQ, (qt + 1) * BQ)
+            qs, os_ = qf[b, h, rows], dof[b, h, rows]
+            il = torch.arange(qt * BQ, qt * BQ + qs.shape[0])[None, :]
+            sT = ks @ qs.T
+            dpT = vs @ os_.T
+            f = torch.ones_like(sT)
+            if softcap > 0:
+                th = torch.tanh(sT * scale / softcap)
+                s2, f = th * softcap * log2e, 1 - th * th
+            else:
+                s2 = sT * (scale * log2e)
+            kept = torch.ones_like(sT, dtype=torch.bool)
+            if causal:
+                kept &= kj <= il
+            if window:
+                kept &= il - kj < window
+            pT = torch.where(kept, torch.exp2(
+                s2 - lse[b, h, rows][None, :] * log2e), 0.0)
+            dsT = pT * (dpT - delta[b, h, rows][None, :]) * f
+            pT, dsT = pT.bfloat16().float(), dsT.bfloat16().float()
+            dv[b, kvh, k0:k0 + bkv] += pT @ os_
+            dk[b, kvh, k0:k0 + bkv] += dsT @ qs
+            shares[(b, h, qt, j)] = dsT.T @ ks
+    dq = torch.zeros_like(qf)
+    for (b, h, qt), js in adds.items():
+        for n, j in enumerate(js):
+            share = shares[(b, h, qt, j)]
+            acc[(b, h, qt)] = share if n == 0 else acc[(b, h, qt)] + share
+        dq[b, h, qt * BQ:(qt + 1) * BQ] = acc[(b, h, qt)] * scale
+    return dq.bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_kernel_model_matches_jax_vjp(case):
+    """The fused kernel's schedule and roundings, modelled visit by visit
+    (``emulate_fused_backward``), keep each gradient within the bf16
+    limits of jax.vjp of the reference (2e-2 of max |grad|, 1e-2 relative
+    RMS) at the same bfloat16 inputs."""
+    causal, window, cap = case[6:]
+    arrays = [np.asarray(torch.from_numpy(a).bfloat16().float())
+              for a in _arrays(case, seed=case[5] + 2)]
+    _, jgrads = _jax_vjp(*arrays, causal, window, cap)
+    tq, tk_, tv, tdo = (torch.from_numpy(a).bfloat16() for a in arrays)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = attention_lse_ref(tq, tk_, tv, **kw)
+    grads = emulate_fused_backward(tq, tk_, tv, out, lse, tdo, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, jgrads):
+        got = g.float().numpy()
+        assert _share(got, w) <= BF16_TOL, (name, _share(got, w))
+        assert _rel_rms(got, w) <= RMS_LIMIT, (name, _rel_rms(got, w))
+
+
+def test_fused_schedule_model_catches_a_reversed_claim_order():
+    """Negative control: claiming each chain's kv tiles from the highest
+    down makes the first CTA wait on a tile no CTA has claimed, which
+    ``run_schedule`` reports as a deadlock."""
+    tiles = fused_schedule(1, 2, 1, 256, 256, 64, True, None)
+    with pytest.raises(AssertionError, match="deadlocks"):
+        run_schedule(tiles[::-1], 1)
+    assert run_schedule(tiles, 1)
