@@ -1247,6 +1247,15 @@ SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 # the float32 kernel at a smaller shape (B, T, H, P, N, L): mamba2's widths
 SSD_BWD_F32 = (2, 1024, 8, 64, 128, 256)
+# the bf16 kernel at a shape its "tiles" route takes (P 48: no wgmma box)
+SSD_BWD_BF16_TILES = (2, 1024, 8, 48, 128, 64)
+# the backward's row and column passes by ss.backward_route
+SSD_BWD_ROUTES = {
+    "wgmma": "bf16 row and column passes on wgmma fed by TMA (bwd_wgrows, "
+             "bwd_wgcols)",
+    "tiles": "row and column passes on mma.sync (bf16) or the CUDA cores "
+             "(float32) (bwd_rows, bwd_cols)",
+}
 
 
 def ssd_bwd_cotangents(torch, gen, x, N):
@@ -1335,25 +1344,30 @@ def bwd_split(torch, fn, pattern: str = r"bwd_[a-z]+") -> dict:
 
 
 def run_ssd_bwd(torch, ss, ss_ref, card):
-    """Phase 6's backward: the float32 kernel at SSD_BWD_F32 and the bf16
-    kernel at the table's shape (SSD_MAIN), each under slow and fast decay
+    """Phase 6's backward: the float32 kernel at SSD_BWD_F32, the bf16
+    kernel on its "tiles" route at SSD_BWD_BF16_TILES and at the table's
+    shape (SSD_MAIN, the "wgmma" route), each under slow and fast decay
     with a nonzero final-state cotangent, held to the twin's VJP, two
-    calls bit-equal; the dropped-tile control under slow decay; bf16 timed
-    beside its bound and the twin's VJP (its graph built once).  Returns
-    the table row."""
+    calls bit-equal; the dropped-tile control under slow decay at
+    SSD_MAIN; bf16 at SSD_MAIN timed beside its bound and the twin's VJP
+    (its graph built once).  Returns the table row."""
     from repro_torch.kernels.cost import ssd_scan_bwd_cost
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(66)
     worst_bf16 = 0.0
-    for dname, (B, T, H, P, N, L) in (("float32", SSD_BWD_F32),
-                                      ("bfloat16", SSD_MAIN)):
-        # fast decay last: its bf16 inputs are the ones timed below
+    for dname, shape in (("float32", SSD_BWD_F32),
+                         ("bfloat16", SSD_BWD_BF16_TILES),
+                         ("bfloat16", SSD_MAIN)):
+        B, T, H, P, N, L = shape
+        main = shape == SSD_MAIN
+        # fast decay last: its inputs at SSD_MAIN are the ones timed below
         for decay in ("slow", "fast"):
             args = ssd_inputs(torch, gen, B, T, H, P, N,
                               getattr(torch, dname), decay)
             gy, gs = ssd_bwd_cotangents(torch, gen, args[0], N)
+            route = ss.backward_route(args[0].dtype, P, N, L)
             what = (f"ssd_scan backward B={B} T={T} H={H} P={P} N={N} "
-                    f"chunk={L} {dname} {decay} decay")
+                    f"chunk={L} {dname} {decay} decay, {route} route")
             errs, rms, worst, want = ssd_bwd_check(torch, ss, ss_ref, args,
                                                    gy, gs, L, what)
             if dname == "bfloat16":
@@ -1363,7 +1377,7 @@ def run_ssd_bwd(torch, ss, ss_ref, card):
                     + "; rel_rms " + ", ".join(f"{n} {e:.3e}" for n, e in
                                                rms.items())
                     + f"; max_abs_err={worst:.3e}; a second call bit-equal")
-            if dname == "bfloat16" and decay == "slow":
+            if main and decay == "slow":
                 control = rel_rms(torch, ssd_bwd_dropping(
                     torch, want[0], *args, gy, L), want[0])
                 line += (f"; control with tile pair {SSD_DROPPED} left out "
@@ -1374,7 +1388,7 @@ def run_ssd_bwd(torch, ss, ss_ref, card):
                         "with a tile pair dropped: it cannot catch one")
             print(f"{line} on {card}", flush=True)
             del want
-            if not (dname == "bfloat16" and decay == "fast"):
+            if not (main and decay == "fast"):
                 del args, gy, gs
             torch.cuda.empty_cache()
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
@@ -1385,7 +1399,9 @@ def run_ssd_bwd(torch, ss, ss_ref, card):
                  flush, reps=10)
     split = bwd_split(torch, lambda: ss.ssd_scan_backward(*args, gy, gs,
                                                               L))
-    print("phase 6: ssd_scan backward, one call by torch.profiler: "
+    passes = ss.backward_route(args[0].dtype, P, N, L)
+    print(f"phase 6: ssd_scan backward, one call by torch.profiler "
+          f"({passes} row and column passes): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in
                       sorted(split.items(), key=lambda kv: -kv[1]))
           + f" on {card}", flush=True)
@@ -1406,7 +1422,10 @@ def run_ssd_bwd(torch, ss, ss_ref, card):
         "library_ms": None,     # no single PyTorch call computes it
     }
     print(f"phase 6: ssd_scan backward B={B} T={T} H={H} P={P} N={N} "
-          f"chunk={L} bf16 fast decay: kernel_ms={ms:.4f} "
+          f"chunk={L} bf16 fast decay (route: {SSD_BWD_ROUTES[passes]}; "
+          f"float32 at {SSD_BWD_F32} and bf16 at {SSD_BWD_BF16_TILES}: "
+          f"{SSD_BWD_ROUTES['tiles']}): "
+          f"kernel_ms={ms:.4f} "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}: {flops:.4g} "
           f"FLOP, {nbytes:.4g} B) plain_ms (the twin's VJP)={plain_ms:.4f} "
           f"library_ms=None kernel_TFLOP/s={flops / ms / 1e9:.2f} "

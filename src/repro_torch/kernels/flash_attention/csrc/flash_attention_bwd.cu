@@ -73,8 +73,8 @@
 
 #include <type_traits>
 
+#include "../../csrc/hopper.cuh"
 #include "fa_common.cuh"
-#include "fa_hopper.cuh"
 
 namespace {
 
@@ -1454,37 +1454,11 @@ fa_bwd_dq_out(const BwdArgs a, const Params p, int rows) {
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time so that the
-// library links nothing beyond the runtime
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
 // a (B, heads, S, hd) bf16 view with (b, h, s) element strides `st`, read
 // in boxes of 64 columns x `rows` rows, 128-B swizzled, zero past S and hd
 bool tensor_map(CUtensorMap* m, const void* ptr, int B, int heads, int S,
                 int hd, const int64_t* st, int rows) {
-  EncodeTiled enc = encoder();
+  hop::EncodeTiled enc = hop::encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(S),

@@ -81,7 +81,8 @@ LIB = CudaLibrary("flash_attention", _CSRC / "flash_attention.cu", _declare,
                   deps=[_CSRC / "fa_common.cuh"])
 LIB_BWD = CudaLibrary("flash_attention_bwd", _CSRC / "flash_attention_bwd.cu",
                       _declare_bwd, deps=[_CSRC / "fa_common.cuh",
-                                          _CSRC / "fa_hopper.cuh"])
+                                          _CSRC.parents[1] / "csrc"
+                                          / "hopper.cuh"])
 
 #: q rows of a backward q tile; the fused bf16 kernel's widest head dim
 BWD_Q_TILE, FUSED_MAX_HD = 64, 256

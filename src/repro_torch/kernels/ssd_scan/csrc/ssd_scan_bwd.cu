@@ -20,65 +20,116 @@
 //   da = reverse cumsum of dcs; ddt = A da + ce + u; dA = sum dt da.
 // (ref.py::ssd_bwd_ref is the plain twin; the tests hold it to jax.vjp.)
 //
-// Six launches, each with one job, in order on the caller's stream:
-//  1. bwd_states, one CTA per (chunk, head, batch row): the chunk's cumsum
-//     (one thread, in order, dt * A rounded before each add, as the float32
-//     forward), written to a (B, H, T) table; the chunk's own state
+// What bounds it on this card: at phase 6's table shape (B=8, T=4096,
+// H=32, P=64, N=128, L=256, bf16) the products above take 1.905e11 FLOPs
+// over the causal triangles (kernels/cost.py::ssd_scan_bwd_cost) against
+// about 0.45 GB of inputs and outputs, so the tensor cores' rate bounds it
+// (0.19 ms at 989 TFLOP/s), and only wgmma reaches that rate.  The row
+// and column passes carry most of the work (about 205 GFLOP counted by
+// whole tiles); their first design (route 0) ran them at about 5% of the
+// rate: one CTA of 4 warps an SM (a float32 G tile row in shared memory),
+// every tile's loads waited out before its products, G and M computed in
+// both passes, B_j and C_i reloaded each head, CTAs of 1 to 4 tile pairs,
+// mma.sync through ldmatrix.
+//
+// Six launches, each with one job, in order on the caller's stream.
+// Route 1 (the launcher's choice, ssd_scan.py backward_route: bfloat16,
+// P = 64, N = 64 or 128, chunks a multiple of 64, the boxes the tensor
+// maps below describe) runs launches 1, 3 and 4 on wgmma fed by TMA
+// (namespace wg; building blocks in ../../csrc/hopper.cuh); route 0 (float32,
+// and bfloat16 at any other shape the kernels take) runs the first
+// design's, on mma.sync or the CUDA cores.
+//  1. bwd_states (route 0) / bwd_wgstates (route 1), one CTA per (chunk,
+//     head, batch row): the chunk's cumsum (one thread, in order, dt * A
+//     rounded before each add, as the float32 forward), written to a (B,
+//     H, T) table (route 1: dt and the decay's factors rin and rout too,
+//     head-major, for the passes' bulk copies); the chunk's own state
 //     sum_s (x_s w_s) (x) B_s and its own cotangent sum_l (gy_l e^{cs_l})
-//     (x) C_l, (P, N) products over the chunk's rows;
+//     (x) C_l, (P, N) products over the chunk's rows.  Route 1: one
+//     warpgroup, 64-row steps of x and B, then gy and C, through a ring
+//     of two TMA stages; each step's scaled rows written once into a
+//     swizzled tile (a row's scale keeps every 16-B chunk in its place)
+//     and read by wgmma as the transposed A;
 //  2. bwd_scan, eight CTAs per (head, batch row), each elementwise over an
 //     eighth of (P, N): the states carried forward (each chunk's slot
 //     becomes the state entering it) and the cotangents carried back from
 //     gstate (each chunk's slot becomes the cotangent of the state leaving
 //     it), and each eighth's part of <h_c, dh> per chunk by a fixed-order
-//     block reduction.  The recurrence is a chain of short steps, so the
-//     loads of 8 chunks are issued together before the 8 steps run: taken
-//     one chunk at a time, each step waits out its loads' latency and the
-//     pass runs far below the card's memory rate;
-//  3. bwd_rows, one CTA per (row tile i, chunk, batch row x head group):
-//     G_ij = C_i B_j^T for the tiles j <= i once, kept in shared memory as
-//     float32, then for each head of the group M_ij = gy_i x_j^T, the
-//     decay-weighted Md = M * D * dt, dC_i += Md . B_j and, from the state,
-//     dC_i += e^{cs} (gy_i . h_c); the rows' dcs terms (sum_s G Md, the
-//     state's) to a (B, H, T) table; dC_i summed over the group's heads in
-//     registers;
-//  4. bwd_cols, one CTA per (key tile j, chunk, batch row x head group):
-//     G_ij for i >= j once, then for each head dx_j = w (B_j . dh^T) +
-//     sum_i Wd . gy_i and dB_j += w (x_j . dh) + sum_i Md^T . C_i (Wd = G *
-//     D * dt and Md^T staged in turn), the column sums ce and u to tables;
+//     block reduction; route 1 also writes the states as their bf16
+//     operands, and the cotangents only so.
+//     The recurrence is a chain of short steps, so the loads of 8 chunks
+//     are issued together before the 8 steps run: taken one chunk at a
+//     time, each step waits out its loads' latency and the pass runs far
+//     below the card's memory rate;
+//  3. rows: for each row tile i, dC_i = sum over the group's heads of
+//     e^{cs} (gy_i . h_c) + sum_{j<=i} Md . B_j (M = gy_i x_j^T, Md = M * D
+//     * dt) and the rows' dcs terms (sum_s G Md, the state's) to (B, H, T)
+//     tables.  Route 0 (bwd_rows): one CTA per (row tile, chunk, batch row
+//     x head group), G_ij = C_i B_j^T for j <= i once into shared memory,
+//     the heads in turn, mma.sync.  Route 1 (bwd_wgrows): see below;
+//  4. columns: for each key tile j, dx_j = w (B_j . dh^T) + sum_{i>=j} Wd
+//     . gy_i of each head and dB_j = sum over the heads of w (x_j . dh) +
+//     sum_i Md^T . C_i (Wd = G * D * dt), the column sums ce and u to
+//     tables.  Route 0 (bwd_cols): one CTA per (key tile, chunk, batch row
+//     x head group), as bwd_rows.  Route 1 (bwd_wgcols): see below;
 //  5. bwd_dt, one warp per (head, batch row), walking the chunks in order:
-//     dcs, its reverse cumsum (a warp scan), ddt and the row's dA;
+//     dcs (route 1: its two warpgroups' parts of the row and column terms
+//     summed in order), its reverse cumsum (a warp scan), ddt and dA;
 //  6. bwd_reduce: dB and dC summed over the head groups in group order and
 //     written in x's type, dA over the batch rows in order.
 // Deterministic: every sum is taken in one fixed order (no atomics), so two
 // calls give the same bits and a restarted training run repeats a run.
 //
-// What bounds it on this card: at mamba2-370m's training shape (B=8,
-// T=2048, H=32, P=64, N=128, L=256, bf16) the products above take about
-// 9.5e10 FLOPs over the causal triangles (kernels/cost.py::
-// ssd_scan_bwd_cost) against about 0.2 GB of inputs and outputs, so the
-// tensor cores' rate bounds it.  Launches 3 and 4 compute G twice, re-read
-// x and gy per tile pair and wait for each tile's loads (one CTA of 4 warps
-// an SM, for their shared memory): simple first, tuned later.
+// Route 1's passes (bwd_wgrows, bwd_wgcols): one CTA an SM, 256 threads (a
+// producer warp beside them made ptxas budget 168 registers a thread and
+// spill; two warpgroups alone get 255), one CTA per (fold f, chunk, batch
+// row x head group).  Fold f takes tiles f and nt - 1 - f, so every CTA
+// does nt + 1 tile pairs a head (the middle tile of an odd nt alone), and
+// walks the group's heads for each of its tiles in turn.  The CTA keeps
+// the head-independent tiles (rows: B_j, j up to its larger tile; columns:
+// C_i, i from its smaller one) and its tile's other operand (C_i; B_j),
+// loaded once a CTA; a ring of two stages brings each head's own tile
+// (gy_i; x_j), its bf16 state (h_c; dh), the tiles of its pairs (x_j, j
+// <= i; gy_i, i >= j) and the chunk's tables, by TMA (x, B and C
+// through 4-D and 3-D tensor maps of the caller's strided views, so the
+// model's slices of one convolution buffer cost no copy) and bulk copies,
+// completing on mbarriers; the second warpgroup's thread 0 refills a stage
+// as soon as every thread has released it, so the next head's tiles are
+// in flight while this one's products run.  A tile's pairs k = 0, 1, ...
+// go to warpgroup k % 2; each computes G for its pairs once a tile into
+// registers (float32, kept over the heads) and M once a (head, pair), so
+// neither G nor M is held in shared memory; the decay-weighted tiles Md
+// (rows), Md^T and Wd (columns) go from the accumulator straight to the
+// next wgmma as register A operands, as FlashAttention-3 does with P.
+// The state terms go to warpgroup 1 (columns with an even number of
+// pairs: dx's to warpgroup 0), which balances the two.  Sums: each
+// warpgroup keeps its own over the heads in order; dC_i and dB_j add
+// warpgroup 1's to warpgroup 0's at the tile's end, dx_j at each head's
+// through shared memory (warpgroup 0 writes it), rq and ce are written as
+// two tables that bwd_dt adds.  Rows and columns stay two passes: a chunk's
+// dB and dC summed over a head group are 2 x 256 x 128 float32 (256 KB),
+// more than an SM holds beside the tiles, and a pass's accumulators fill
+// the registers (dC or dB 64, G 64, M 32 a thread).
 //
-// Products: every one a warp's 16-row strip of a (TL x W) output, its
-// operands staged in shared memory (rows padded by 16 B), the accumulator
-// in mma.sync m16n8k16 fragments (row g / g+8, columns 2t, 2t+1 of each
-// 8-column block; g = lane / 4, t = lane % 4).  Operand tiles arrive by
-// cp.async, every copy of a tile in flight at once; the float32 states by
-// float4 loads, converted to the operand type.  Off the diagonal the decay
-// is factored by tiles as in the forward, exp(cs_l - cs_s) = rin_l
-// exp(cs_i0 - cs_j1) rout_s (i0 the row tile's first row, j1 the key
-// tile's last; per-position tables of the head, one exp a tile pair); the
-// diagonal tile takes exp per element (ex2.approx) and masks.
-//  * bfloat16: the tensor cores, ldmatrix(.trans) and mma.sync bf16 -> f32,
-//    the forward's pieces.  Rounding points, the divergence from the
-//    reference (float32 throughout): gy e^{cs} in launch 1 (x w there is
-//    taken as two bf16 parts, hi + lo, so the states are float32 to about
-//    2^-16); the carried states h_c and dh as operands; the decay-weighted
-//    tiles Md (rows and columns) and Wd before their products.  G, M, E,
-//    every sum, every table and dt, A, ddt, dA are float32; dx, dB and dC
-//    are written in bfloat16.
+// Products and roundings: route 0 takes every product as a warp's 16-row
+// strip of a (TL x W) output, operands staged in shared memory (rows
+// padded by 16 B), the accumulator in mma.sync m16n8k16 fragments (row g
+// / g+8, columns 2t, 2t+1 of each 8-column block; g = lane / 4, t = lane
+// % 4), operand tiles by cp.async, the float32 states by float4 loads
+// converted to the operand type.  Off the diagonal both routes factor the
+// decay by tiles as the forward does, exp(cs_l - cs_s) = rin_l exp(cs_i0
+// - cs_j1) rout_s (i0 the row tile's first row, j1 the key tile's last;
+// rin and rout one exp a position, route 1's from launch 1's tables, so
+// that a pair's elementwise work takes no exp); the diagonal tile takes
+// exp per element (ex2.approx) and masks.
+//  * bfloat16: the tensor cores (route 0 ldmatrix(.trans) and mma.sync,
+//    route 1 wgmma), bf16 -> f32.  Rounding points, the divergence from
+//    the reference (float32 throughout): gy e^{cs} in launch 1 (x w there
+//    is taken as two bf16 parts, hi + lo, so the states are float32 to
+//    about 2^-16); the carried states h_c and dh as operands; the
+//    decay-weighted tiles Md (rows and columns) and Wd before their
+//    products.  G, M, E, every sum, every table and dt, A, ddt, dA are
+//    float32; dx, dB and dC are written in bfloat16.
 //  * float32: the CUDA cores in full float32 (fmaf, no TF32): each thread
 //    computes the same fragment elements from the float32 operands in
 //    shared memory, so both types share every other line of the kernels.
@@ -86,6 +137,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -125,6 +178,14 @@ struct BwdArgs {
   float* dBp;            // (groups, B, T, N) dB of each head group
   float* dCp;            // (groups, B, T, N) dC of each head group
   float* dAp;            // (B, H) dA of each batch row
+  // the wgmma passes' scratch (null on the other route)
+  float* dtT;            // (B, H, T)  dt, head-major
+  float* rin;            // (B, H, T)  e^{cs - cs at its tile's first row}
+  float* rout;           // (B, H, T)  e^{cs at its tile's last row - cs}
+  float* rq2;            // (B, H, T)  the second warpgroup's rq
+  float* ce2;            // (B, H, T)  the second warpgroup's ce
+  bf16_t* stb;           // (B, nc, H, P, N) st as the operand, bfloat16
+  bf16_t* dstb;          // (B, nc, H, P, N) dst as the operand, bfloat16
   int Bsz, T, H, P, N, chunk, TL, nc, hpg, groups;
   int64_t xs[3];         // (b, t, h) strides of x
   int64_t ds[3];         // (b, t, h) strides of dt
@@ -540,6 +601,8 @@ __global__ void __launch_bounds__(kScanThreads) bwd_scan(const BwdArgs a) {
       for (int k = 0; k < kE; ++k) {
         if (at[k] >= PN) continue;
         s[at[k]] = v[k];
+        if (a.stb)
+          a.stb[state_at(a, b, c, h) + at[k]] = __float2bfloat16_rn(v[k]);
         v[k] = v[k] * dec + own[q][k];
       }
     }
@@ -573,7 +636,10 @@ __global__ void __launch_bounds__(kScanThreads) bwd_scan(const BwdArgs a) {
 #pragma unroll
       for (int k = 0; k < kE; ++k) {
         if (at[k] >= PN) continue;
-        d[at[k]] = v[k];
+        if (a.dstb)            // route 1 reads only the bf16 operand
+          a.dstb[state_at(a, b, c, h) + at[k]] = __float2bfloat16_rn(v[k]);
+        else
+          d[at[k]] = v[k];
         sum[q] = fmaf(hv[q][k], v[k], sum[q]);
         v[k] = v[k] * dec + own[q][k];
       }
@@ -991,6 +1057,760 @@ __global__ void __launch_bounds__(kThreads) bwd_cols(const BwdArgs a) {
   }
 }
 
+// -- 3 and 4 on Hopper: the bf16 row and column passes on wgmma --------------
+
+namespace wg {
+
+constexpr int kT = 64;                     // rows of a tile: one wgmma M
+constexpr int kP = 64;                     // the head dim the route takes
+constexpr int kBlk = kT * 128;             // a 64-column block of 64 rows
+constexpr int kTiles = kMaxChunk / kT;     // tiles of a chunk, at most
+// two warpgroups, the second's thread 0 also issuing the copies: a
+// producer warp beside them makes ptxas budget registers as for three
+// warpgroups (168 a thread; the passes then spill), two alone leave 255
+constexpr int kThreads = 256;
+constexpr int kLoader = 128;
+constexpr int kStages = 2;
+// named barriers (0 is __syncthreads'): both warpgroups;
+// the column pass's staged dx written, and read
+constexpr int kBarAll = 1, kBarDxFull = 2, kBarDxFree = 3;
+
+// Shared memory of a pass at N = 64 NB (P = 64), every tile 1024-B
+// aligned: the head-independent tiles the CTA keeps (rows: B_j for j up
+// to the fold's larger row tile; cols: C_i for i from its smaller column
+// tile), the current tile of the other operand (rows: C_r; cols: B_j),
+// the ring's stages (the head's own tile, gy_r or x_j; its state, h_c or
+// dh; the pairs' tiles, x_j for j <= r or gy_i for i >= j; the chunk's
+// cumsum, dt, rin and rout), the column pass's staged dx, the mbarriers.
+template <int NB>
+struct Smem {
+  static constexpr int TILE = NB * kBlk;               // 64 x N, bf16
+  static constexpr int OFF_ONE = kTiles * TILE;
+  static constexpr int OFF_STAGE = OFF_ONE + TILE;
+  static constexpr int ST_STATE = kBlk;
+  static constexpr int ST_LIST = ST_STATE + TILE;
+  static constexpr int ST_TAB = ST_LIST + kTiles * kBlk;
+  static constexpr int STAGE = ST_TAB + 4 * kMaxChunk * 4;
+  static constexpr int OFF_DX = OFF_STAGE + kStages * STAGE;
+  static_assert(STAGE % 1024 == 0, "stages keep their tiles aligned");
+  __host__ __device__ static constexpr int bar(bool cols) {
+    return OFF_DX + (cols ? kT * kT * 4 : 0);
+  }
+  // + 6 mbarriers and the slack to align the base
+  __host__ __device__ static constexpr int bytes(bool cols) {
+    return bar(cols) + 64 + 1024;
+  }
+  static_assert(bar(true) + 64 + 1024 <= 232448, "shared memory");
+};
+
+// two bf16 of a swizzled 64 x (64 NB) tile: row r, columns 64 cb + 8 nf +
+// 2 t (+ 1), as floats
+__device__ __forceinline__ float2 tile_pair(const unsigned char* tile,
+                                            int r, int cb, int nf, int t) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(
+      tile + cb * kBlk + r * 128 + ((nf ^ (r & 7)) << 4) + 4 * t);
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// d (64 x 64) = A . B^T, A and B 64-row K-major tiles of KB 64-column
+// blocks (K = 64 KB)
+template <int KB>
+__device__ __forceinline__ void mm_kk(float (&d)[32], uint32_t a,
+                                      uint32_t b) {
+  const uint64_t da = hop::desc(a, 16, 1024), db = hop::desc(b, 16, 1024);
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * KB; ++kk) {
+    const uint32_t o = (kk >> 2) * kBlk + (kk & 3) * 32;
+    hop::wgmma_ss_n64<0, 0>(d, hop::adv(da, o), hop::adv(db, o), kk > 0);
+  }
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::keep(d);
+}
+
+// d (64 x 64) = A . B, A a 64 x 64 K-major tile, B the 64-column block at
+// `b` of an MN-major 64-row tile
+__device__ __forceinline__ void mm_kn(float (&d)[32], uint32_t a,
+                                      uint32_t b) {
+  const uint64_t da = hop::desc(a, 16, 1024), db = hop::desc(b, kBlk, 1024);
+  hop::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_ss_n64<0, 1>(d, hop::adv(da, kk * 32), hop::adv(db, kk * 2048),
+                            kk > 0);
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::keep(d);
+}
+
+// d (64 x 64 NB) += A . B, A (64 x 64) in registers (4 k16 fragments), B
+// an MN-major 64-row tile of NB blocks; issued, not waited on
+template <int NB>
+__device__ __forceinline__ void mm_rs(float (&d)[32 * NB],
+                                      const uint32_t (&a)[4][4], uint32_t b) {
+  const uint64_t db = hop::desc(b, kBlk, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (NB == 2)
+      hop::wgmma_rs_n128<1>(d, a[kk], hop::adv(db, kk * 2048), 1);
+    else
+      hop::wgmma_rs_n64<1>(d, a[kk], hop::adv(db, kk * 2048), 1);
+  }
+}
+
+// the tile of the fold's tiles at position u: the pass's tiles f and
+// nt - 1 - f (one when they are equal), the one with more tile pairs
+// first
+__device__ __forceinline__ int fold_tile(bool cols, int f, int nt, int u) {
+  const int big = nt - 1 - f;
+  return cols ? (u == 0 ? f : big) : (u == 0 ? big : f);
+}
+
+// One CTA a (fold f, chunk c, batch row b x head group), two warpgroups.
+// Rows (COLS false): for the fold's row tiles r, dC_r summed over the
+// group's heads and the rows' dcs terms; columns: for its column tiles j,
+// dB_j summed over the heads, dx_j of each head and the columns' ce and u.
+// A tile's pairs k = 0, 1, ... (rows: key tiles j = k; columns: row tiles
+// i = j + k) go to warpgroup k % 2; the state terms to warpgroup 1
+// (columns with an even number of pairs: dx's to warpgroup 0).  Each
+// warpgroup computes G for its own pairs once a tile into registers and M
+// once a (head, pair), and keeps its own sums; they are added in
+// warpgroup order: dC and dB at the tile's end, dx at each head's, rq and
+// ce by bwd_dt.
+template <bool COLS, int NB>
+__device__ __forceinline__ void pass(const CUtensorMap* mfix,
+                                     const CUtensorMap* mone,
+                                     const CUtensorMap* mhead,
+                                     const CUtensorMap* mlist,
+                                     const CUtensorMap* mstate,
+                                     const BwdArgs& a) {
+  using S = Smem<NB>;
+  constexpr int N = 64 * NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::bar(COLS));
+  uint64_t* empty = full + kStages;
+  uint64_t* fixed = empty + kStages;
+  uint64_t* one_full = fixed + 1;
+
+  const int f = blockIdx.x, c = blockIdx.y;
+  const int b = blockIdx.z / a.groups, grp = blockIdx.z % a.groups;
+  const int h_lo = grp * a.hpg, h_hi = min(a.H, h_lo + a.hpg);
+  const int nh = h_hi - h_lo;
+  const int L = a.chunk, nt = L / kT, t0 = c * L;
+  const int ntl = nt - 1 - f == f ? 1 : 2;
+  const int uses = ntl * nh;               // stage uses: (tile, head)
+  // the kept tiles: rows B_0 .. B_{nt-1-f}; columns C_f .. C_{nt-1}
+  const int k_lo = COLS ? f : 0, k_n = nt - f;
+  const int ct = threadIdx.x;
+  if (ct == 0) {
+    for (int q = 0; q < kStages; ++q) {
+      hop::mbar_init(full + q, 1);
+      hop::mbar_init(empty + q, kThreads);
+    }
+    hop::mbar_init(fixed, 1);
+    hop::mbar_init(one_full, 1);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the copies (the loader thread): the fold's tile u of the other operand
+  auto load_one = [&](int u) {
+    hop::mbar_expect_tx(one_full, S::TILE);
+    for (int cb = 0; cb < NB; ++cb)
+      hop::tma_load_3d(sm + S::OFF_ONE + cb * kBlk, mone, one_full, 64 * cb,
+                       t0 + fold_tile(COLS, f, nt, u) * kT, b);
+  };
+  // stage use s: tile s / nh, head h_lo + s % nh; its own tile, state,
+  // pairs' tiles and tables
+  auto load_stage = [&](int s) {
+    const int tt = fold_tile(COLS, f, nt, s / nh), h = h_lo + s % nh;
+    const int np = COLS ? nt - tt : tt + 1, st = s & 1;
+    unsigned char* sp = sm + S::OFF_STAGE + st * S::STAGE;
+    hop::mbar_expect_tx(full + st, kBlk + S::TILE + np * kBlk + 4 * L * 4);
+    hop::tma_load_4d(sp, mhead, full + st, 0, t0 + tt * kT, h, b);
+    const int srow = ((b * a.nc + c) * a.H + h) * kP;
+    for (int cb = 0; cb < NB; ++cb)
+      hop::tma_load_2d(sp + S::ST_STATE + cb * kBlk, mstate, full + st,
+                       64 * cb, srow);
+    for (int k = 0; k < np; ++k)
+      hop::tma_load_4d(sp + S::ST_LIST + k * kBlk, mlist, full + st, 0,
+                       t0 + (COLS ? tt + k : k) * kT, h, b);
+    const int64_t row = bht(a, b, h) + t0;
+    const float* tabs[4] = {a.cum, a.dtT, a.rin, a.rout};
+    for (int q = 0; q < 4; ++q)
+      hop::bulk_load(sp + S::ST_TAB + q * kMaxChunk * 4, tabs[q] + row,
+                     L * 4, full + st);
+  };
+  if (ct == kLoader) {
+    hop::mbar_expect_tx(fixed, k_n * S::TILE);
+    for (int k = 0; k < k_n; ++k)
+      for (int cb = 0; cb < NB; ++cb)
+        hop::tma_load_3d(sm + k * S::TILE + cb * kBlk, mfix, fixed, 64 * cb,
+                         t0 + (k_lo + k) * kT, b);
+    load_one(0);
+    for (int q = 0; q < kStages && q < uses; ++q) load_stage(q);
+  }
+  __syncwarp();
+
+  const int wgi = ct >> 7, wt = ct & 127;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g;            // the thread's rows r0, r0 + 8
+  const unsigned char* one = sm + S::OFF_ONE;
+  const uint32_t one_s = hop::smem(one);
+  float2* dxs = reinterpret_cast<float2*>(sm + S::OFF_DX);
+  if (COLS && wgi == 0) hop::named_arrive(kBarDxFree, kThreads);
+  hop::mbar_wait_warp(fixed, 0);
+  int s = 0;
+  for (int u = 0; u < ntl; ++u) {
+    const int tt = fold_tile(COLS, f, nt, u);
+    const int np = COLS ? nt - tt : tt + 1;
+    const int x0 = tt * kT;                // the tile's first row in the chunk
+    hop::mbar_wait_warp(one_full, u & 1);
+    // G (rows: C_r B_j^T; columns: its transpose B_j C_i^T) of this
+    // warpgroup's pairs, float32, kept over the heads
+    float G[2][32];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int k = 2 * q + wgi;
+      if (k >= np) break;
+      const int kept = (COLS ? tt + k : k) - k_lo;
+      mm_kk<NB>(G[q], one_s, hop::smem(sm + kept * S::TILE));
+    }
+    float acc[32 * NB];                    // rows: dC_r; columns: dB_j
+#pragma unroll
+    for (int e = 0; e < 32 * NB; ++e) acc[e] = 0.f;
+
+    for (int h = h_lo; h < h_hi; ++h, ++s) {
+      const int st = s & 1;
+      hop::mbar_wait_warp(full + st, (s >> 1) & 1);
+      const unsigned char* sp = sm + S::OFF_STAGE + st * S::STAGE;
+      const uint32_t head_s = hop::smem(sp);
+      const uint32_t state_s = head_s + S::ST_STATE;
+      const uint32_t list_s = head_s + S::ST_LIST;
+      const float* cum = reinterpret_cast<const float*>(sp + S::ST_TAB);
+      const float* dts = cum + kMaxChunk;
+      const float* rin = dts + kMaxChunk;
+      const float* rout = rin + kMaxChunk;
+      const int64_t at = bht(a, b, h) + t0 + x0;
+      // each row's factor of the decay (rows: rin; columns: rout)
+      float fr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        fr[hh] = (COLS ? rout : rin)[x0 + r0 + 8 * hh];
+      if constexpr (!COLS) {
+        // -- rows: tile i = tt, pairs j = k ---------------------------------
+        float rsum[2] = {0.f, 0.f}, inter[2] = {0.f, 0.f};
+        if (wgi == 1) {
+          // from the state: dC_i += e^{cs} (gy_i . h_c), and its dcs term
+          // e^{cs_l} <gy_l h_c, C_l>
+          const float e0 = expf(cum[x0 + r0]), e1 = expf(cum[x0 + r0 + 8]);
+          float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+          for (int cb = 0; cb < NB; ++cb) {
+            float t1[32];
+            mm_kn(t1, head_s, state_s + cb * kBlk);
+#pragma unroll
+            for (int nf = 0; nf < 8; ++nf) {
+              const float2 c0 = tile_pair(one, r0, cb, nf, t4);
+              const float2 c1 = tile_pair(one, r0 + 8, cb, nf, t4);
+              float* d = acc + 32 * cb + 4 * nf;
+              const float* v = t1 + 4 * nf;
+              p0 = fmaf(v[0], c0.x, p0);
+              p0 = fmaf(v[1], c0.y, p0);
+              p1 = fmaf(v[2], c1.x, p1);
+              p1 = fmaf(v[3], c1.y, p1);
+              d[0] = fmaf(e0, v[0], d[0]);
+              d[1] = fmaf(e0, v[1], d[1]);
+              d[2] = fmaf(e1, v[2], d[2]);
+              d[3] = fmaf(e1, v[3], d[3]);
+            }
+          }
+          inter[0] = e0 * quad_sum(p0);
+          inter[1] = e1 * quad_sum(p1);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int j = 2 * q + wgi;
+          if (j >= np) break;
+          const int j0 = j * kT;
+          // M = gy_i . x_j^T, then Md = M * D * dt (0 above the diagonal)
+          float m[32];
+          mm_kk<1>(m, head_s, list_s + j * kBlk);
+          const bool diag = j == tt;
+          const float ex = diag ? 0.f : expf(cum[x0] - cum[j0 + kT - 1]);
+          const float ri0 = fr[0] * ex, ri1 = fr[1] * ex;
+          uint32_t af[4][4];
+#pragma unroll
+          for (int nf = 0; nf < 8; ++nf) {
+            const int col = 8 * nf + 2 * t4, sc = j0 + col;
+            float md[4];
+            if (!diag) {         // the factored decay, times dt_s
+              const float c0 = rout[sc] * dts[sc];
+              const float c1 = rout[sc + 1] * dts[sc + 1];
+              md[0] = m[4 * nf] * ri0 * c0;
+              md[1] = m[4 * nf + 1] * ri0 * c1;
+              md[2] = m[4 * nf + 2] * ri1 * c0;
+              md[3] = m[4 * nf + 3] * ri1 * c1;
+            } else {             // exp per element, 0 above the diagonal
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = r0 + 8 * (e >> 1), cc = col + (e & 1);
+                const float v = m[4 * nf + e]
+                                * fast_exp(cum[x0 + r] - cum[j0 + cc])
+                                * dts[j0 + cc];
+                md[e] = cc <= r ? v : 0.f;
+              }
+            }
+            const float* gg = G[q] + 4 * nf;
+            rsum[0] = fmaf(gg[0], md[0], fmaf(gg[1], md[1], rsum[0]));
+            rsum[1] = fmaf(gg[2], md[2], fmaf(gg[3], md[3], rsum[1]));
+            af[nf >> 1][2 * (nf & 1)] = pack(md[0], md[1]);
+            af[nf >> 1][2 * (nf & 1) + 1] = pack(md[2], md[3]);
+          }
+          // dC_i += Md . B_j (Md from registers)
+          hop::wg_fence();
+          mm_rs<NB>(acc, af, hop::smem(sm + (j - k_lo) * S::TILE));
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::keep(acc);
+          hop::keep(af);
+        }
+        const float q0 = quad_sum(rsum[0]) + inter[0];
+        const float q1 = quad_sum(rsum[1]) + inter[1];
+        if (t4 == 0) {
+          float* rq = (wgi == 0 ? a.rq : a.rq2) + at;
+          rq[r0] = q0;
+          rq[r0 + 8] = q1;
+        }
+      } else {
+        // -- columns: tile j = tt, pairs i = j + k --------------------------
+        const float cl = cum[L - 1];
+        const float ew0 = expf(cl - cum[x0 + r0]);
+        const float ew1 = expf(cl - cum[x0 + r0 + 8]);
+        const float d0 = dts[x0 + r0], d1 = dts[x0 + r0 + 8];
+        const float w0 = ew0 * d0, w1 = ew1 * d1;
+        float dx[32];
+        if (wgi == (np & 1)) {
+          // from the state: dx_j = w (B_j . dh^T)
+          mm_kk<NB>(dx, one_s, state_s);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dx[e] *= (e & 2) ? w1 : w0;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dx[e] = 0.f;
+        }
+        float ca[2] = {0.f, 0.f}, ua[2] = {0.f, 0.f};
+        if (wgi == 1) {
+          // from the state: dB_j += w (x_j . dh), and u_s = e^{cs_{L-1} -
+          // cs_s} <x_s dh, B_s>
+          float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+          for (int cb = 0; cb < NB; ++cb) {
+            float t3[32];
+            mm_kn(t3, head_s, state_s + cb * kBlk);
+#pragma unroll
+            for (int nf = 0; nf < 8; ++nf) {
+              const float2 b0 = tile_pair(one, r0, cb, nf, t4);
+              const float2 b1 = tile_pair(one, r0 + 8, cb, nf, t4);
+              float* d = acc + 32 * cb + 4 * nf;
+              const float* v = t3 + 4 * nf;
+              p0 = fmaf(v[0], b0.x, p0);
+              p0 = fmaf(v[1], b0.y, p0);
+              p1 = fmaf(v[2], b1.x, p1);
+              p1 = fmaf(v[3], b1.y, p1);
+              d[0] = fmaf(w0, v[0], d[0]);
+              d[1] = fmaf(w0, v[1], d[1]);
+              d[2] = fmaf(w1, v[2], d[2]);
+              d[3] = fmaf(w1, v[3], d[3]);
+            }
+          }
+          ua[0] = ew0 * quad_sum(p0);
+          ua[1] = ew1 * quad_sum(p1);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int k = 2 * q + wgi;
+          if (k >= np) break;
+          const int i0 = (tt + k) * kT;
+          // M^T = x_j . gy_i^T; Md^T = M^T * D * dt_s and Wd = G * D *
+          // dt_s (0 below the diagonal), both to registers
+          float m[32];
+          mm_kk<1>(m, head_s, list_s + k * kBlk);
+          const bool diag = k == 0;
+          const float ex = diag ? 0.f : expf(cum[i0] - cum[x0 + kT - 1]);
+          const float ro0 = fr[0] * ex, ro1 = fr[1] * ex;
+          uint32_t ab[4][4], aw[4][4];
+#pragma unroll
+          for (int nf = 0; nf < 8; ++nf) {
+            const int col = 8 * nf + 2 * t4, l = i0 + col;
+            float dd[4];
+            if (!diag) {         // the factored decay
+              const float c0 = rin[l], c1 = rin[l + 1];
+              dd[0] = ro0 * c0;
+              dd[1] = ro0 * c1;
+              dd[2] = ro1 * c0;
+              dd[3] = ro1 * c1;
+            } else {             // exp per element, 0 below the diagonal
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = r0 + 8 * (e >> 1), cc = col + (e & 1);
+                const float v = fast_exp(cum[i0 + cc] - cum[x0 + r]);
+                dd[e] = cc >= r ? v : 0.f;
+              }
+            }
+            float mdt[4], wd[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ds = e < 2 ? d0 : d1;
+              const float gd = G[q][4 * nf + e] * dd[e];
+              ca[e >> 1] = fmaf(gd, m[4 * nf + e], ca[e >> 1]);
+              mdt[e] = m[4 * nf + e] * dd[e] * ds;
+              wd[e] = gd * ds;
+            }
+            ab[nf >> 1][2 * (nf & 1)] = pack(mdt[0], mdt[1]);
+            ab[nf >> 1][2 * (nf & 1) + 1] = pack(mdt[2], mdt[3]);
+            aw[nf >> 1][2 * (nf & 1)] = pack(wd[0], wd[1]);
+            aw[nf >> 1][2 * (nf & 1) + 1] = pack(wd[2], wd[3]);
+          }
+          // dB_j += Md^T . C_i and dx_j += Wd . gy_i (A from registers)
+          hop::wg_fence();
+          mm_rs<NB>(acc, ab, hop::smem(sm + (tt + k - k_lo) * S::TILE));
+          mm_rs<1>(dx, aw, list_s + k * kBlk);
+          hop::wg_commit();
+          hop::wg_wait<0>();
+          hop::keep(acc);
+          hop::keep(dx);
+          hop::keep(ab);
+          hop::keep(aw);
+        }
+        const float c0 = quad_sum(ca[0]), c1 = quad_sum(ca[1]);
+        if (t4 == 0) {
+          float* ce = (wgi == 0 ? a.ce : a.ce2) + at;
+          ce[r0] = c0;
+          ce[r0 + 8] = c1;
+          if (wgi == 1) {
+            a.us[at + r0] = ua[0];
+            a.us[at + r0 + 8] = ua[1];
+          }
+        }
+        // dx_j = warpgroup 0's + warpgroup 1's, through shared memory
+        if (wgi == 1) {
+          hop::named_sync(kBarDxFree, kThreads);
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            dxs[(warp * 16 + e) * 32 + lane] = make_float2(dx[2 * e],
+                                                           dx[2 * e + 1]);
+          hop::named_arrive(kBarDxFull, kThreads);
+        } else {
+          hop::named_sync(kBarDxFull, kThreads);
+          bf16_t* dxb = static_cast<bf16_t*>(a.dx)
+                        + (((int64_t)b * a.T + t0 + x0) * a.H + h) * kP;
+          const int64_t xsr = (int64_t)a.H * kP;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const float2 o = dxs[(warp * 16 + e) * 32 + lane];
+            const int r = r0 + 8 * (e & 1), col = 8 * (e >> 1) + 2 * t4;
+            store2(dxb + r * xsr + col, dx[2 * e] + o.x, dx[2 * e + 1] + o.y);
+          }
+          if (s + 1 < uses) hop::named_arrive(kBarDxFree, kThreads);
+        }
+      }
+      hop::mbar_arrive(empty + st);        // this thread is done with it
+      if (ct == kLoader && s + kStages < uses) {   // its next use, once free
+        hop::mbar_wait(empty + st, (s >> 1) & 1);
+        load_stage(s + kStages);
+      }
+      __syncwarp();
+    }
+    // the tile's sum over the group's heads: warpgroup 0's, then 1's added
+    float* out = (COLS ? a.dBp : a.dCp)
+                 + (((int64_t)grp * a.Bsz + b) * a.T + t0 + x0) * N;
+    if (wgi == 0) {
+#pragma unroll
+      for (int e = 0; e < 16 * NB; ++e) {
+        const int r = r0 + 8 * (e & 1), col = 8 * (e >> 1) + 2 * t4;
+        *reinterpret_cast<float2*>(out + (int64_t)r * N + col) =
+            make_float2(acc[2 * e], acc[2 * e + 1]);
+      }
+    }
+    hop::named_sync(kBarAll, kThreads);
+    // every thread is past its reads of this tile's C_r or B_j
+    if (ct == kLoader && u + 1 < ntl) load_one(u + 1);
+    __syncwarp();
+    if (wgi == 1) {
+#pragma unroll
+      for (int e = 0; e < 16 * NB; ++e) {
+        const int r = r0 + 8 * (e & 1), col = 8 * (e >> 1) + 2 * t4;
+        float2* o = reinterpret_cast<float2*>(out + (int64_t)r * N + col);
+        const float2 v = *o;
+        *o = make_float2(v.x + acc[2 * e], v.y + acc[2 * e + 1]);
+      }
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_wgrows(const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mgy,
+           const __grid_constant__ CUtensorMap mb,
+           const __grid_constant__ CUtensorMap mc,
+           const __grid_constant__ CUtensorMap mst, const BwdArgs a) {
+  pass<false, NB>(&mb, &mc, &mgy, &mx, &mst, a);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_wgcols(const __grid_constant__ CUtensorMap mx,
+           const __grid_constant__ CUtensorMap mgy,
+           const __grid_constant__ CUtensorMap mb,
+           const __grid_constant__ CUtensorMap mc,
+           const __grid_constant__ CUtensorMap mdst, const BwdArgs a) {
+  pass<true, NB>(&mc, &mb, &mx, &mgy, &mdst, a);
+}
+
+// Launch 1 on this route: one warpgroup a (chunk, head, batch row), the
+// chunk's cumsum and tables as bwd_states takes them, then its own state
+// sum_s (x_s w_s) (x) B_s (x w as bf16 hi + lo, two products) and its own
+// cotangent sum_l (gy_l e^{cs_l}) (x) C_l on wgmma: 2 nt steps of 64 rows
+// (x_k and B_k, then gy_k and C_k) through a ring of two TMA stages, each
+// step's scaled rows written once into a swizzled tile beside it (the
+// scale is a row's, so a 16-B chunk keeps its place) and read as the
+// transposed A operand.
+constexpr int kStateThreads = 128;
+
+template <int NB>
+struct StateSmem {
+  static constexpr int TILE = NB * kBlk;
+  static constexpr int STAGE = kBlk + TILE;              // x or gy; B or C
+  static constexpr int OFF_SCALED = kStages * STAGE;     // hi, lo
+  static constexpr int OFF_TAB = OFF_SCALED + 2 * kBlk;  // 4 tables
+  static constexpr int OFF_BAR = OFF_TAB + 4 * kMaxChunk * 4;
+  __host__ __device__ static constexpr int bytes() {
+    return OFF_BAR + 8 * kStages + 1024;
+  }
+};
+
+template <int NB>
+__global__ void __launch_bounds__(kStateThreads)
+bwd_wgstates(const __grid_constant__ CUtensorMap mx,
+             const __grid_constant__ CUtensorMap mgy,
+             const __grid_constant__ CUtensorMap mb,
+             const __grid_constant__ CUtensorMap mc, const BwdArgs a) {
+  using S = StateSmem<NB>;
+  constexpr int N = 64 * NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* cum = reinterpret_cast<float*>(sm + S::OFF_TAB);
+  float* dts = cum + kMaxChunk;
+  float* wst = dts + kMaxChunk;               // exp(cs_{L-1} - cs) dt
+  float* ecs = wst + kMaxChunk;               // exp(cs)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::OFF_BAR);
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int L = a.chunk, nt = L / kT, t0 = c * L;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // step k: x_k and B_k (k < nt), then gy and C of tile k - nt
+  auto load_step = [&](int k) {
+    const int st = k & 1, row = t0 + (k % nt) * kT;
+    unsigned char* sp = sm + st * S::STAGE;
+    hop::mbar_expect_tx(full + st, S::STAGE);
+    hop::tma_load_4d(sp, k < nt ? &mx : &mgy, full + st, 0, row, h, b);
+    for (int cb = 0; cb < NB; ++cb)
+      hop::tma_load_3d(sp + kBlk + cb * kBlk, k < nt ? &mb : &mc, full + st,
+                       64 * cb, row, b);
+  };
+  if (tid == 0) {
+    for (int q = 0; q < kStages; ++q) hop::mbar_init(full + q, 1);
+    hop::mbar_init_fence();
+    for (int k = 0; k < kStages; ++k) load_step(k);
+  }
+  __syncwarp();
+  // the tables, as bwd_states makes them
+  const float* db = a.dt + b * a.ds[0] + h * a.ds[2];
+  for (int l = tid; l < L; l += kStateThreads) {
+    dts[l] = db[(int64_t)(t0 + l) * a.ds[1]];
+    a.dtT[bht(a, b, h) + t0 + l] = dts[l];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float A_h = a.A[h];
+    float run = 0.f;
+    for (int l = 0; l < L; ++l) {
+      run = __fadd_rn(run, __fmul_rn(dts[l], A_h));
+      cum[l] = run;
+    }
+  }
+  __syncthreads();
+  const float cs_last = cum[L - 1];
+  float* cum_out = a.cum + bht(a, b, h) + t0;
+  for (int l = tid; l < L; l += kStateThreads) {
+    wst[l] = expf(cs_last - cum[l]) * dts[l];
+    ecs[l] = expf(cum[l]);
+    cum_out[l] = cum[l];
+    // the decay factored by tiles, for the passes
+    a.rin[bht(a, b, h) + t0 + l] = expf(cum[l] - cum[l & ~(kT - 1)]);
+    a.rout[bht(a, b, h) + t0 + l] = expf(cum[l | (kT - 1)] - cum[l]);
+  }
+  __syncthreads();
+
+  unsigned char* hi = sm + S::OFF_SCALED;
+  unsigned char* lo = hi + kBlk;
+  const uint64_t hi_mn = hop::desc(hop::smem(hi), kBlk, 1024);
+  const uint64_t lo_mn = hop::desc(hop::smem(lo), kBlk, 1024);
+  float acc[32 * NB];
+#pragma unroll
+  for (int e = 0; e < 32 * NB; ++e) acc[e] = 0.f;
+  for (int k = 0; k < 2 * nt; ++k) {
+    const int st = k & 1, pass = k >= nt, r0 = (k % nt) * kT;
+    unsigned char* sp = sm + st * S::STAGE;
+    hop::mbar_wait_warp(full + st, (k >> 1) & 1);
+    // the rows scaled (pass 0: x w, as hi and lo; pass 1: gy e^{cs}), 16
+    // B a thread at a time, every chunk in its swizzled place
+    const float* scale = pass ? ecs : wst;
+    for (int q = tid; q < kBlk / 16; q += kStateThreads) {
+      const int r = q >> 3;
+      float v[8];
+      load8(v, reinterpret_cast<const bf16_t*>(sp) + 8 * q);
+      const float sc = scale[r0 + r];
+      uint32_t wh[4], wl[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float x0 = v[2 * u] * sc, x1 = v[2 * u + 1] * sc;
+        const bf16_t h0 = from_f<bf16_t>(x0), h1 = from_f<bf16_t>(x1);
+        wh[u] = pack(x0, x1);
+        wl[u] = pack(x0 - to_f(h0), x1 - to_f(h1));
+      }
+      *reinterpret_cast<uint4*>(hi + 16 * q) =
+          make_uint4(wh[0], wh[1], wh[2], wh[3]);
+      if (!pass)
+        *reinterpret_cast<uint4*>(lo + 16 * q) =
+            make_uint4(wl[0], wl[1], wl[2], wl[3]);
+    }
+    hop::fence_async_smem();
+    hop::named_sync(1, kStateThreads);
+    // (P x N) += (rows of hi [+ lo])^T . (rows of B or C)
+    const uint64_t op = hop::desc(hop::smem(sp + kBlk), kBlk, 1024);
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (NB == 2)
+        hop::wgmma_ss_n128<1, 1>(acc, hop::adv(hi_mn, kk * 2048),
+                                 hop::adv(op, kk * 2048), 1);
+      else
+        hop::wgmma_ss_n64<1, 1>(acc, hop::adv(hi_mn, kk * 2048),
+                                hop::adv(op, kk * 2048), 1);
+    }
+    if (!pass) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (NB == 2)
+          hop::wgmma_ss_n128<1, 1>(acc, hop::adv(lo_mn, kk * 2048),
+                                   hop::adv(op, kk * 2048), 1);
+        else
+          hop::wgmma_ss_n64<1, 1>(acc, hop::adv(lo_mn, kk * 2048),
+                                  hop::adv(op, kk * 2048), 1);
+      }
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::keep(acc);
+    // every thread is past the stage and the scaled tiles
+    hop::named_sync(1, kStateThreads);
+    if (tid == 0 && k + kStages < 2 * nt) load_step(k + kStages);
+    __syncwarp();
+    if (k == nt - 1 || k == 2 * nt - 1) {
+      float* out = (pass ? a.dst : a.st) + state_at(a, b, c, h);
+#pragma unroll
+      for (int e = 0; e < 16 * NB; ++e) {
+        const int r = 16 * warp + g + 8 * (e & 1);
+        const int col = 8 * (e >> 1) + 2 * t4;
+        *reinterpret_cast<float2*>(out + r * N + col) =
+            make_float2(acc[2 * e], acc[2 * e + 1]);
+        acc[2 * e] = acc[2 * e + 1] = 0.f;
+      }
+    }
+  }
+}
+
+// a bf16 tensor map of `rank` dims (innermost first; `strides` in
+// elements, rank - 1 of them), read in 64 x 64 boxes (1 in the outer
+// dims), 128-B swizzled
+bool tensor_map(CUtensorMap* m, const void* ptr, int rank,
+                const uint64_t* dims, const int64_t* strides) {
+  hop::EncodeTiled enc = hop::encoder();
+  if (enc == nullptr) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t box[4], unit[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    box[i] = i < 2 ? kT : 1;
+    unit[i] = 1;
+    if (i + 1 < rank) st[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+  }
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(ptr), d, st, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// launches 1 to 4 on this route: the tensor maps of x, gy, B, C and the
+// bf16 states, the chunks' states, the state scan, then the two passes
+// over (fold, chunk, batch row x group)
+template <int NB>
+int launch(const BwdArgs& a, cudaStream_t s) {
+  using S = Smem<NB>;
+  const uint64_t T = a.T, H = a.H, B = a.Bsz, N = a.N;
+  CUtensorMap mx, mgy, mb, mc, mst, mdst;
+  const uint64_t dx4[4] = {kP, T, H, B};
+  const int64_t sx[3] = {a.xs[1], a.xs[2], a.xs[0]};
+  const int64_t sg[3] = {(int64_t)a.H * kP, kP, (int64_t)a.T * a.H * kP};
+  const uint64_t db3[3] = {N, T, B};
+  const int64_t sb[2] = {a.bs[1], a.bs[0]}, sc[2] = {a.cst[1], a.cst[0]};
+  const uint64_t ds2[2] = {N, B * a.nc * H * kP};
+  const int64_t ss[1] = {(int64_t)N};
+  if (!tensor_map(&mx, a.x, 4, dx4, sx) || !tensor_map(&mgy, a.gy, 4, dx4, sg)
+      || !tensor_map(&mb, a.Bm, 3, db3, sb)
+      || !tensor_map(&mc, a.Cm, 3, db3, sc)
+      || !tensor_map(&mst, a.stb, 2, ds2, ss)
+      || !tensor_map(&mdst, a.dstb, 2, ds2, ss))
+    return (int)cudaErrorInvalidValue;
+  constexpr int ss_bytes = StateSmem<NB>::bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_wgstates<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ss_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_wgrows<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::bytes(false));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_wgcols<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::bytes(true));
+  if (err != cudaSuccess) return (int)err;
+  bwd_wgstates<NB><<<dim3(a.nc, a.H, a.Bsz), kStateThreads, ss_bytes, s>>>(
+      mx, mgy, mb, mc, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd_scan<bf16_t><<<dim3(a.H * kScanParts, a.Bsz), kScanThreads, 0, s>>>(
+      a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int nt = a.chunk / kT;
+  const dim3 grid((nt + 1) / 2, a.nc, a.Bsz * a.groups);
+  bwd_wgrows<NB><<<grid, kThreads, S::bytes(false), s>>>(mx, mgy, mb, mc,
+                                                          mst, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd_wgcols<NB><<<grid, kThreads, S::bytes(true), s>>>(mx, mgy, mb, mc,
+                                                         mdst, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 // -- 5. ddt and dA -----------------------------------------------------------
 
 __global__ void __launch_bounds__(32) bwd_dt(const BwdArgs a) {
@@ -1012,8 +1832,13 @@ __global__ void __launch_bounds__(32) bwd_dt(const BwdArgs a) {
         const bool ok = k < E && l < L;
         dtv[k] = ok ? db[(int64_t)(t0 + l) * a.ds[1]] : 0.f;
         const float u = ok ? a.us[row + l] : 0.f;
-        dd[k] = ok ? a.ce[row + l] + u : 0.f;
-        dcs[k] = ok ? a.rq[row + l] - dtv[k] * dd[k] : 0.f;
+        // the wgmma passes leave two warpgroups' parts, summed in order
+        const float ce = !ok ? 0.f : a.ce2 ? a.ce[row + l] + a.ce2[row + l]
+                                           : a.ce[row + l];
+        const float rq = !ok ? 0.f : a.rq2 ? a.rq[row + l] + a.rq2[row + l]
+                                           : a.rq[row + l];
+        dd[k] = ok ? ce + u : 0.f;
+        dcs[k] = ok ? rq - dtv[k] * dd[k] : 0.f;
         vs = fmaf(dtv[k], u, vs);
       }
       vs = warp_sum(vs);
@@ -1079,37 +1904,59 @@ __global__ void __launch_bounds__(256) bwd_reduce(const BwdArgs a) {
   }
 }
 
+// route 0: the first design's row and column passes (bwd_rows, bwd_cols);
+// 1: the
+// wgmma passes (bwd_wgrows, bwd_wgcols), for bfloat16 with P = 64, N = 64
+// or 128 and chunks a multiple of 64 (the launcher chooses: ssd_scan.py
+// backward_route)
+bool route_takes(int route, int dtype, int P, int N, int chunk) {
+  if (route == 0) return true;
+  return route == 1 && dtype == 1 && P == wg::kP && (N == 64 || N == 128)
+         && chunk % wg::kT == 0;
+}
+
 int64_t scratch_floats(int Bsz, int T, int H, int P, int N, int chunk,
-                       int groups) {
+                       int groups, int route) {
   const int64_t nc = T / chunk, bht = (int64_t)Bsz * H * T;
-  return 4 * bht + 2 * (int64_t)Bsz * nc * H * P * N
-         + (int64_t)Bsz * H * nc * kScanParts
-         + 2 * (int64_t)groups * Bsz * T * N + (int64_t)Bsz * H;
+  const int64_t states = (int64_t)Bsz * nc * H * P * N;
+  return 4 * bht + 2 * states + (int64_t)Bsz * H * nc * kScanParts
+         + 2 * (int64_t)groups * Bsz * T * N
+         + (route == 1 ? 5 * bht + states : 0) + (int64_t)Bsz * H;
 }
 
 template <typename T>
-int launch(const BwdArgs& a, cudaStream_t s) {
+int launch(const BwdArgs& a, cudaStream_t s, int route) {
   cudaError_t err;
-  const int nt = a.chunk / a.TL;
-  const int ss = states_smem<T>(), ps = pass_smem<T>();
-  err = cudaFuncSetAttribute(bwd_states<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, ss);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_rows<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, ps);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_cols<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, ps);
-  if (err != cudaSuccess) return (int)err;
-  bwd_states<T><<<dim3(a.nc, a.H, a.Bsz), kThreads, ss, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_scan<T><<<dim3(a.H * kScanParts, a.Bsz), kScanThreads, 0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 grid(nt, a.nc, a.Bsz * a.groups);
-  bwd_rows<T><<<grid, kThreads, ps, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_cols<T><<<grid, kThreads, ps, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (route == 1) {
+    if constexpr (sizeof(T) == 2) {
+      const int e = a.N == 128 ? wg::launch<2>(a, s) : wg::launch<1>(a, s);
+      if (e) return e;
+    }
+  } else {
+    const int nt = a.chunk / a.TL;
+    const int ss = states_smem<T>(), ps = pass_smem<T>();
+    err = cudaFuncSetAttribute(bwd_states<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ss);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(bwd_rows<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ps);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(bwd_cols<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ps);
+    if (err != cudaSuccess) return (int)err;
+    bwd_states<T><<<dim3(a.nc, a.H, a.Bsz), kThreads, ss, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bwd_scan<T><<<dim3(a.H * kScanParts, a.Bsz), kScanThreads, 0, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const dim3 grid(nt, a.nc, a.Bsz * a.groups);
+    bwd_rows<T><<<grid, kThreads, ps, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bwd_cols<T><<<grid, kThreads, ps, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   bwd_dt<<<dim3(a.H, a.Bsz), 32, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int64_t n = (int64_t)a.Bsz * a.T * a.N;
@@ -1122,10 +1969,11 @@ int launch(const BwdArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// Floats of scratch ssd_backward needs for these shapes and head groups.
+// Floats of scratch ssd_backward needs for these shapes, head groups and
+// route.
 int64_t ssd_backward_scratch(int Bsz, int T, int H, int P, int N, int chunk,
-                             int groups) {
-  return scratch_floats(Bsz, T, H, P, N, chunk, groups);
+                             int groups, int route) {
+  return scratch_floats(Bsz, T, H, P, N, chunk, groups, route);
 }
 
 // x (Bsz, T, H, P), dt (Bsz, T, H) f32, A (H,) f32, B/C (Bsz, T, N) as the
@@ -1136,19 +1984,21 @@ int64_t ssd_backward_scratch(int Bsz, int T, int H, int P, int N, int chunk,
 // (Bsz, T, H, P), dB and dC (Bsz, T, N) contiguous in x's type and ddt
 // (Bsz, T, H), dA (H,) float32 (dtype 0: float32, CUDA cores; 1: bfloat16,
 // tensor cores).  scratch holds ssd_backward_scratch(...) floats; `groups`
-// head groups split each chunk's heads across CTAs (1 <= groups <= H).  The
-// caller checks the forward's limits, Bsz, T / chunk and Bsz * groups
-// within 65535, and T > 0.  Returns the first launch error, or
+// head groups split each chunk's heads across CTAs (1 <= groups <= H);
+// `route` picks the row and column passes (route_takes).  The caller
+// checks the forward's limits, Bsz, T / chunk and Bsz * groups within
+// 65535, and T > 0.  Returns the first launch error, or
 // cudaGetLastError() after the last launch.
 int ssd_backward(const void* x, const void* dt, const void* A,
                  const void* Bm, const void* Cm, const void* gy,
                  const void* gstate, void* dx, void* ddt, void* dA, void* dB,
                  void* dC, void* scratch, int dtype, int Bsz, int T, int H,
-                 int P, int N, int chunk, int groups, const int64_t* strides,
-                 void* stream) {
+                 int P, int N, int chunk, int groups, int route,
+                 const int64_t* strides, void* stream) {
   if (Bsz <= 0 || H <= 0) return (int)cudaSuccess;
   if (P % 16 || N % 16 || chunk % 16 || P > kMaxP || N > kMaxN ||
-      chunk > kMaxChunk || T <= 0 || T % chunk || groups < 1 || groups > H)
+      chunk > kMaxChunk || T <= 0 || T % chunk || groups < 1 || groups > H
+      || !route_takes(route, dtype, P, N, chunk))
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.x = x; a.dt = static_cast<const float*>(dt);
@@ -1173,6 +2023,17 @@ int ssd_backward(const void* x, const void* dt, const void* A,
   a.hd = f; f += (int64_t)Bsz * H * a.nc * kScanParts;
   a.dBp = f; f += (int64_t)groups * Bsz * T * N;
   a.dCp = f; f += (int64_t)groups * Bsz * T * N;
+  a.dtT = a.rin = a.rout = a.rq2 = a.ce2 = nullptr;
+  a.stb = a.dstb = nullptr;
+  if (route == 1) {          // every part a multiple of 16 B
+    a.dtT = f; f += bht;
+    a.rin = f; f += bht;
+    a.rout = f; f += bht;
+    a.rq2 = f; f += bht;
+    a.ce2 = f; f += bht;
+    a.stb = reinterpret_cast<bf16_t*>(f); f += states / 2;
+    a.dstb = reinterpret_cast<bf16_t*>(f); f += states / 2;
+  }
   a.dAp = f;
   for (int i = 0; i < 3; ++i) {
     a.xs[i] = strides[i];
@@ -1183,8 +2044,8 @@ int ssd_backward(const void* x, const void* dt, const void* A,
     a.cst[i] = strides[8 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<bf16_t>(a, s);
+  if (dtype == 0) return launch<float>(a, s, route);
+  if (dtype == 1) return launch<bf16_t>(a, s, route);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,9 +12,11 @@ state's, and computes the five gradients chunk by chunk.  The kernels live
 in ``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu`` (design notes there)
 and are built at first use (:data:`LIB`, :data:`LIB_BWD`, see
 :mod:`.._build`): the dtype picks one — bfloat16 runs on the tensor cores
-(``mma.sync``; the forward rounds W, x·w and the state operand to
-bfloat16, the backward gy·exp(cs), the carried states and the
-decay-weighted tiles), float32 on the CUDA cores in full float32.
+(the forward on ``mma.sync``, rounding W, x·w and the state operand to
+bfloat16; the backward rounds gy·exp(cs), the carried states and the
+decay-weighted tiles, and its states, row and column launches run on
+``wgmma`` fed by TMA where :func:`backward_route` says so), float32 on the
+CUDA cores in full float32.
 
 :func:`ssd_scan` and :func:`ssd_scan_backward` take CUDA tensors only.
 They read x, dt, B and C through their strides (the last dimension
@@ -49,11 +51,23 @@ BWD_LAUNCHES: Dict[str, int] = {"ssd_scan_bwd": 0}
 #: :func:`reset_launches`: none on any path since the backward kernel, so
 #: every count reads 0 (the training checks assert it)
 RECOMPUTES: Dict[str, int] = {"ssd_scan": 0}
-#: CTAs the backward's chunk-parallel passes aim for: the heads of a chunk
-#: are split into groups until (batch rows x chunks x tiles x groups)
-#: reaches two waves over the H100's 132 SMs (the passes' shared memory
-#: holds one CTA an SM)
+#: CTAs the first row and column passes (the ``"tiles"`` route) aim for: the
+#: heads of a chunk are split into groups until (batch rows x chunks x
+#: tiles x groups) reaches two waves over the H100's 132 SMs (the passes'
+#: shared memory holds one CTA an SM)
 GROUP_CTAS = 264
+#: CTAs one wave of the ``"wgmma"`` route's passes holds: one a streaming
+#: multiprocessor of the H100 (their shared memory holds one)
+WAVE_CTAS = 132
+#: a ``"wgmma"`` CTA's fixed work (its G tiles, its kept tiles' loads, the
+#: ring's fill), in heads' worth of pairs: an estimate, not tuned on the
+#: card.  It matters where (batch rows x chunks x folds) is under half a
+#: wave or leaves a ragged last one; at mamba2's training shape (128 CTAs)
+#: and phase 6's table shape (256) every value gives one group
+WAVE_CTA_HEADS = 2
+#: the ``"wgmma"`` route's tile rows (one wgmma M) and the head dim and
+#: state sizes its tensor maps describe
+WG_TILE, WG_P, WG_N = 64, 64, (64, 128)
 
 
 def reset_launches() -> None:
@@ -69,16 +83,17 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_backward_scratch.argtypes = [i32] * 7
+    lib.ssd_backward_scratch.argtypes = [i32] * 8
     lib.ssd_backward_scratch.restype = ctypes.c_int64
-    lib.ssd_backward.argtypes = [p] * 13 + [i32] * 8 + [p, p]
+    lib.ssd_backward.argtypes = [p] * 13 + [i32] * 9 + [p, p]
     lib.ssd_backward.restype = i32
 
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIB = CudaLibrary("ssd_scan", _CSRC / "ssd_scan.cu", _declare)
 LIB_BWD = CudaLibrary("ssd_scan_bwd", _CSRC / "ssd_scan_bwd.cu",
-                      _declare_bwd)
+                      _declare_bwd,
+                      deps=[_CSRC.parents[1] / "csrc" / "hopper.cuh"])
 
 
 def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -169,15 +184,51 @@ def kernel_tile(chunk: int) -> int:
     return 64 if chunk % 64 == 0 else (32 if chunk % 32 == 0 else 16)
 
 
-def head_groups(Bsz: int, T: int, H: int, chunk: int) -> int:
-    """The head groups the backward splits each chunk's heads into: the
-    fewest that give its chunk-parallel passes :data:`GROUP_CTAS` CTAs,
-    as equal as whole heads allow (the shapes decide, so the sums' order,
-    and the bits, do not change between calls)."""
-    ctas = max(1, Bsz * (T // chunk) * (chunk // kernel_tile(chunk)))
-    want = min(H, max(1, -(-GROUP_CTAS // ctas)))
+#: the backward's routes (``ssd_backward``'s ``route``)
+ROUTES = {"tiles": 0, "wgmma": 1}
+
+
+def backward_route(dtype: torch.dtype, P: int, N: int, chunk: int) -> str:
+    """Which states, row and column launches the backward runs:
+    ``"wgmma"`` (``bwd_wgstates``, ``bwd_wgrows``, ``bwd_wgcols``:
+    warpgroup products fed by TMA, for bfloat16 at P = 64, N = 64 or 128
+    and chunks a multiple of 64, the boxes their tensor maps describe; the
+    launcher's checks already hold x, B and C to 16-B aligned rows) or
+    ``"tiles"`` (the first design's ``mma.sync`` and float32 launches,
+    every other shape the kernels take).  The shapes and the dtype decide;
+    nothing falls back at run time."""
+    if (dtype == torch.bfloat16 and P == WG_P and N in WG_N
+            and chunk % WG_TILE == 0):
+        return "wgmma"
+    return "tiles"
+
+
+def head_groups(Bsz: int, T: int, H: int, chunk: int, route: str) -> int:
+    """The head groups the backward splits each chunk's heads into, as
+    equal as whole heads allow; the shapes decide, so the sums' order, and
+    the bits, do not change between calls.  ``"tiles"``: the fewest that
+    give its passes :data:`GROUP_CTAS` CTAs.  ``"wgmma"``: a CTA a (fold,
+    chunk, batch row, group), each taking a group's heads in turn, so the
+    passes take (waves of :data:`WAVE_CTAS` CTAs) x (heads a group +
+    :data:`WAVE_CTA_HEADS`); the fewest groups that make that least."""
+    if route == "wgmma":
+        items = max(1, Bsz * (T // chunk) * wgmma_folds(chunk))
+        cost = [-(-items * g // WAVE_CTAS) * (-(-H // g) + WAVE_CTA_HEADS)
+                for g in range(1, H + 1)]
+        want = cost.index(min(cost)) + 1
+    else:
+        ctas = max(1, Bsz * (T // chunk) * (chunk // kernel_tile(chunk)))
+        want = min(H, max(1, -(-GROUP_CTAS // ctas)))
     per = -(-H // want)
     return -(-H // per)
+
+
+def wgmma_folds(chunk: int) -> int:
+    """CTAs a (chunk, batch row, head group) on the ``"wgmma"`` route: fold
+    f takes tiles f and nt - 1 - f of the chunk's nt, so that every fold
+    does nt + 1 tile pairs (the middle tile of an odd nt alone: (nt + 1) /
+    2)."""
+    return (chunk // WG_TILE + 1) // 2
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -196,7 +247,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     and the final state's ``gstate`` (B,H,P,N) → (dx (B,T,H,P), ddt
     (B,T,H), dA (H,), dB (B,T,N), dC (B,T,N)); dx, dB and dC contiguous in
     x's dtype, ddt and dA float32.  One call launches the backward's six
-    kernels in order on the current stream."""
+    kernels in order on the current stream, those of
+    :func:`backward_route`."""
     if x.dim() != 4 or Bm.dim() != 3:
         raise ValueError("x must be (B, T, H, P) and Bm (B, T, N)")
     Bsz, T, H, P = x.shape
@@ -221,7 +273,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty((Bsz, T, N), dtype=dtype, device=dev)
     if Bsz == 0 or H == 0 or T == 0:
         return dx, ddt, dA, dB, dC
-    groups = head_groups(Bsz, T, H, chunk)
+    route = backward_route(dtype, P, N, chunk)
+    groups = head_groups(Bsz, T, H, chunk, route)
     if Bsz * groups > 65535:
         raise ValueError(f"{Bsz} batch rows x {groups} head groups: the "
                          "backward's grid takes at most 65535")
@@ -229,7 +282,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     gstate = _dense(gstate.to(dtype))
     lib = LIB_BWD.lib()
     scratch = torch.empty(
-        lib.ssd_backward_scratch(Bsz, T, H, P, N, int(chunk), groups),
+        lib.ssd_backward_scratch(Bsz, T, H, P, N, int(chunk), groups,
+                                 ROUTES[route]),
         dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 10)(
         x.stride(0), x.stride(1), x.stride(2),
@@ -241,7 +295,7 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Cm.data_ptr(), gy.data_ptr(), gstate.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             scratch.data_ptr(), _DTYPES[dtype], Bsz, T, H, P, N, int(chunk),
-            groups, strides, stream())
+            groups, ROUTES[route], strides, stream())
     raise_on(err, "ssd_scan_backward")
     count_launch(BWD_LAUNCHES, "ssd_scan_bwd")
     return dx, ddt, dA, dB, dC

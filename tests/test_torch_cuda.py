@@ -1157,13 +1157,21 @@ def test_cuda_ssd_scan_gradient_is_the_twins_vjp(cuda, dtype):
 SSD_BWD_SHAPES = [
     # (B, T, H, P, N, chunk, decay): one chunk and several, chunk 16, 32,
     # 64 and 256, P 16/48/64 and N 32/80/128, fast and slow decay; the last
-    # at mamba2's widths with 32 heads (two head groups)
+    # at mamba2's widths with 32 heads (16 head groups).  In bf16 the first
+    # three run the mma.sync row and column passes, the rest the wgmma passes
+    # (ss.backward_route), which the next five add: chunks 64, 128 and 192
+    # (N 64), 5 heads in 3 groups, 200 CTAs (a ragged second wave)
     (1, 16, 2, 16, 32, 16, "fast"),
     (2, 96, 3, 32, 32, 32, "slow"),
     (2, 192, 2, 48, 80, 64, "slow"),
     (1, 256, 2, 64, 128, 256, "fast"),
     (2, 1024, 4, 64, 128, 256, "slow"),
     (2, 512, 32, 64, 128, 256, "slow"),
+    (2, 192, 2, 64, 128, 64, "fast"),
+    (2, 512, 3, 64, 128, 128, "slow"),
+    (2, 384, 3, 64, 64, 192, "fast"),
+    (5, 1024, 5, 64, 128, 256, "fast"),
+    (25, 1024, 2, 64, 128, 256, "fast"),
 ]
 
 
@@ -1195,6 +1203,34 @@ def test_cuda_ssd_backward_matches_twins_vjp(cuda, case, dtype, gstate):
     ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
     want = torch.autograd.grad(ssd_ref(*ins, chunk), ins, (gy, gs))
     _vjp_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case,route", [
+    ((2, 192, 2, 48, 80, 64), ("bwd_rows", "bwd_cols")),
+    ((2, 512, 3, 64, 128, 128), ("bwd_wgrows", "bwd_wgcols")),
+])
+def test_cuda_ssd_backward_launches_its_routes_passes(cuda, case, route):
+    """A bf16 backward launches the row and column passes
+    ss.backward_route names for its shape, and not the other route's
+    (kernel names by torch.profiler)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    B, T, H, P, N, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, T, H, P, N, torch.bfloat16)
+    gy = torch.randn((B, T, H, P), device=cuda).to(torch.bfloat16)
+    gs = torch.randn((B, H, P, N), device=cuda).to(torch.bfloat16)
+    ss.ssd_scan_backward(x, dt, A, Bm, Cm, gy, gs, chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ss.ssd_scan_backward(x, dt, A, Bm, Cm, gy, gs, chunk)
+        torch.cuda.synchronize()
+    names = {m.group(0) for e in prof.key_averages()
+             for m in [re.search(r"bwd_[a-z]+", e.key)] if m}
+    want = "wgmma" if route[0] == "bwd_wgrows" else "tiles"
+    assert ss.backward_route(torch.bfloat16, P, N, chunk) == want
+    other = {"bwd_rows", "bwd_cols", "bwd_wgrows", "bwd_wgcols"} - set(route)
+    assert set(route) <= names and not other & names, names
 
 
 def test_cuda_ssd_backward_fake_op_matches_the_kernel(cuda):
