@@ -39,6 +39,7 @@ from .. import tree
 from ..configs import get_config
 from ..configs.reduced import reduced as make_reduced
 from ..models import transformer as T
+from ..obs.tracer import span as _span
 from ..pjit_utils import mesh_of
 
 
@@ -92,59 +93,67 @@ def serve_batch(cfg, params, prompts: np.ndarray, gen_tokens: int,
 
     ``params`` and ``frames`` are moved to ``device`` (a no-op where they
     already are).  Times are host clocks around work that ends in a
-    synchronize."""
-    device = resolve_device(device)
-    params = _to(params, device)
-    if frames is not None:
-        frames = torch.as_tensor(frames).to(device)
+    synchronize.  With tracing on, the call records ``lm.serve_batch`` ⊃
+    ``lm.prefill`` (the interval ``prefill_s`` times) and ``lm.decode``
+    (the interval ``decode_s`` times) ⊃ one ``lm.decode_step`` a token."""
     B, S = prompts.shape
-    cache_len = S + gen_tokens
-    tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
-    mesh = mesh_of(tree.leaves(params)[0])
-    if mesh is not None:
-        from torch.distributed.tensor import distribute_tensor
-
-        from ..core.sharding_bridge import P
-        from .shardings import batch_axes_for, to_placements
-        dp = batch_axes_for(B, cfg, mesh)
-        tokens = distribute_tensor(tokens, mesh, to_placements(
-            mesh, P(dp if len(dp) != 1 else dp[0], None) if dp
-            else P(None, None)))
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def pick(logits: torch.Tensor) -> torch.Tensor:
-        if greedy:
-            return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        probs = torch.softmax(logits.float(), dim=-1)
-        return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
-
-    # DTensor views cannot be taken in inference mode: no_grad on a mesh
-    grad_off = torch.inference_mode() if mesh is None else torch.no_grad()
-    with grad_off, _spmd(mesh):
-        _sync(device)
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(cfg, params, tokens, frames=frames,
-                                  cache_len=cache_len)
-        tok = pick(logits)
-        _sync(device)
-        prefill_s = time.perf_counter() - t0
-
-        out: List[torch.Tensor] = []
-        t0 = time.perf_counter()
-        for i in range(gen_tokens):
-            out.append(tok[:, 0])
-            logits, cache = T.decode_step(cfg, params, cache, tok, S + i)
-            tok = pick(logits)
-        generated = torch.stack(out, dim=1)
+    with _span("lm.serve_batch", "lm", batch=B, prompt_len=S,
+               gen_tokens=gen_tokens):
+        device = resolve_device(device)
+        params = _to(params, device)
+        if frames is not None:
+            frames = torch.as_tensor(frames).to(device)
+        cache_len = S + gen_tokens
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+        mesh = mesh_of(tree.leaves(params)[0])
         if mesh is not None:
-            generated = generated.full_tensor()
-        generated = generated.cpu().numpy()                  # synchronizes
-        _sync(device)
-        decode_s = time.perf_counter() - t0
-    return generated, {
-        "prefill_s": prefill_s, "decode_s": decode_s,
-        "tokens_per_s": B * gen_tokens / max(decode_s, 1e-9),
-        "device": str(device)}
+            from torch.distributed.tensor import distribute_tensor
+
+            from ..core.sharding_bridge import P
+            from .shardings import batch_axes_for, to_placements
+            dp = batch_axes_for(B, cfg, mesh)
+            tokens = distribute_tensor(tokens, mesh, to_placements(
+                mesh, P(dp if len(dp) != 1 else dp[0], None) if dp
+                else P(None, None)))
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def pick(logits: torch.Tensor) -> torch.Tensor:
+            if greedy:
+                return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            probs = torch.softmax(logits.float(), dim=-1)
+            return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+
+        # DTensor views cannot be taken in inference mode: no_grad on a mesh
+        grad_off = torch.inference_mode() if mesh is None else torch.no_grad()
+        with grad_off, _spmd(mesh):
+            _sync(device)
+            with _span("lm.prefill", "lm"):
+                t0 = time.perf_counter()
+                logits, cache = T.prefill(cfg, params, tokens, frames=frames,
+                                          cache_len=cache_len)
+                tok = pick(logits)
+                _sync(device)
+                prefill_s = time.perf_counter() - t0
+
+            out: List[torch.Tensor] = []
+            with _span("lm.decode", "lm"):
+                t0 = time.perf_counter()
+                for i in range(gen_tokens):
+                    out.append(tok[:, 0])
+                    with _span("lm.decode_step", "lm"):
+                        logits, cache = T.decode_step(cfg, params, cache, tok,
+                                                      S + i)
+                        tok = pick(logits)
+                generated = torch.stack(out, dim=1)
+                if mesh is not None:
+                    generated = generated.full_tensor()
+                generated = generated.cpu().numpy()              # synchronizes
+                _sync(device)
+                decode_s = time.perf_counter() - t0
+        return generated, {
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "tokens_per_s": B * gen_tokens / max(decode_s, 1e-9),
+            "device": str(device)}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -12,6 +12,10 @@ card the mixers run the hand-written kernels forward and the plain
 twins' VJPs backward (``kernels/*/ops.py``).  ``cfg.accum_steps > 1``
 splits the batch into microbatches in a Python loop (the reference's
 ``lax.scan``), one microbatch's activations live at a time.
+
+With tracing on (``repro_torch.obs``), a step records the phase spans
+``lm.train_step`` ⊃ ``lm.forward``, ``lm.backward`` (one of each a
+microbatch) and ``lm.optimizer``; none of them synchronizes.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from .. import tree as T
 from ..configs.base import ArchConfig
 from ..models import transformer as TM
+from ..obs.tracer import span as _span
 from ..optimizer.adamw import AdamW, global_norm
 from ..optimizer.schedule import warmup_cosine
 
@@ -52,8 +57,10 @@ def init_train_state(cfg: ArchConfig, gen: torch.Generator, optimizer: AdamW,
 def value_and_grad(cfg: ArchConfig, params: Any, batch: Dict[str, Any]):
     """(loss, metrics, gradient tree of ``params``) of one batch."""
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
-    loss, met = TM.loss_fn(cfg, T.unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    with _span("lm.forward", "lm"):
+        loss, met = TM.loss_fn(cfg, T.unflatten(params, leaves), batch)
+    with _span("lm.backward", "lm"):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), {k: v.detach() for k, v in met.items()}, \
         T.unflatten(params, list(grads))
 
@@ -74,41 +81,43 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
     in memory; the caller's ``state`` then holds the new values."""
 
     def train_step(state, batch):
-        params = state["params"]
-        A = cfg.accum_steps
-        if A == 1:
-            loss, met, grads = value_and_grad(cfg, params, batch)
-        else:
-            grads = loss = None
-            for a in range(A):
-                mb = {k: _microbatch(v, A, a) for k, v in batch.items()}
-                l, _m, g = value_and_grad(cfg, params, mb)
-                grads = g if grads is None else T.map(torch.add, grads, g)
-                loss = l if loss is None else loss + l
-            grads = T.map(lambda g: g / A, grads)
-            loss = loss / A
-            met = {"ce": loss,
-                   "moe_aux": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
-        gnorm = global_norm(grads)
-        new_state = {}
-        if compression is not None:
-            from ..optimizer import compression as C
-            ef = state["ef"]
-            if compression == "int8":
-                grads, ef, wire = C.compress_int8(grads, ef, cfg=cfg)
-            elif compression == "topk":
-                grads, ef, wire = C.compress_topk(grads, ef, frac=topk_frac,
-                                                  cfg=cfg)
+        with _span("lm.train_step", "lm"):
+            params = state["params"]
+            A = cfg.accum_steps
+            if A == 1:
+                loss, met, grads = value_and_grad(cfg, params, batch)
             else:
-                raise ValueError(compression)
-            new_state["ef"] = ef
-            met = dict(met, wire_bytes=wire)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params,
-                                               donate=donate)
-        metrics = {"loss": loss, "grad_norm": gnorm, **met}
-        new_state.update({"params": new_params, "opt": new_opt})
-        return new_state, metrics
+                grads = loss = None
+                for a in range(A):
+                    mb = {k: _microbatch(v, A, a) for k, v in batch.items()}
+                    l, _m, g = value_and_grad(cfg, params, mb)
+                    grads = g if grads is None else T.map(torch.add, grads, g)
+                    loss = l if loss is None else loss + l
+                grads = T.map(lambda g: g / A, grads)
+                loss = loss / A
+                met = {"ce": loss,
+                       "moe_aux": torch.zeros((), dtype=torch.float32,
+                                              device=loss.device)}
+            new_state = {}
+            with _span("lm.optimizer", "lm"):
+                gnorm = global_norm(grads)
+                if compression is not None:
+                    from ..optimizer import compression as C
+                    ef = state["ef"]
+                    if compression == "int8":
+                        grads, ef, wire = C.compress_int8(grads, ef, cfg=cfg)
+                    elif compression == "topk":
+                        grads, ef, wire = C.compress_topk(grads, ef,
+                                                          frac=topk_frac, cfg=cfg)
+                    else:
+                        raise ValueError(compression)
+                    new_state["ef"] = ef
+                    met = dict(met, wire_bytes=wire)
+                new_params, new_opt = optimizer.update(grads, state["opt"],
+                                                       params, donate=donate)
+            metrics = {"loss": loss, "grad_norm": gnorm, **met}
+            new_state.update({"params": new_params, "opt": new_opt})
+            return new_state, metrics
 
     return train_step
 

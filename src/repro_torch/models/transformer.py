@@ -34,6 +34,13 @@ cross K/V in decode.  Each decoder layer's cache holds its own cross K/V
 ``cache["cross"]`` (num_layers, B, F, KV, hd).  A config's ``frontend``
 is a stub in the reference too (no model code reads it: the token ids,
 and whisper's frame embeddings, arrive fused).
+
+With tracing on (``repro_torch.obs``), every mode records the component
+spans ``lm.embed``, ``lm.mixer`` (arg ``kind``), ``lm.ffn``, ``lm.head``
+and, in :func:`loss_fn`, ``lm.loss``; under remat the recomputation in
+the backward opens them again.  Norms and residual adds outside the
+mixer and the FFN belong to no component; the encoder and
+cross-attention have no span.  No span synchronizes.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..obs.tracer import span as _span
 from ..pjit_utils import constrain_batch_only, spmd_cache
 from . import layers as L
 from . import mla as MLA
@@ -345,8 +353,10 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
     """One block.  Returns (x, new_cache, the MoE FFN's aux metrics or
     None)."""
     h = L.norm_apply(cfg.norm, p["ln_attn"], x)
-    y, new_cache = _apply_mixer(cfg, spec, p, h, positions=positions,
-                                mode=mode, cache=cache, cache_pos=cache_pos)
+    with _span("lm.mixer", "lm", kind=spec.mixer):
+        y, new_cache = _apply_mixer(cfg, spec, p, h, positions=positions,
+                                    mode=mode, cache=cache,
+                                    cache_pos=cache_pos)
     if cfg.use_post_norm:
         y = L.norm_apply(cfg.norm, p["ln_attn_post"], y)
     x = constrain_batch_only(x + y)
@@ -361,7 +371,8 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
         x = constrain_batch_only(x + y)
     if spec.ffn == "dense":
         h = L.norm_apply(cfg.norm, p["ln_ffn"], x)
-        y = L.ffn(p["ffn"], h, cfg.ffn_activation)
+        with _span("lm.ffn", "lm"):
+            y = L.ffn(p["ffn"], h, cfg.ffn_activation)
         if cfg.use_post_norm:
             y = L.norm_apply(cfg.norm, p["ln_ffn_post"], y)
         x = constrain_batch_only(x + y)
@@ -369,9 +380,11 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Params, x, *,
     if spec.ffn == "moe":
         m = cfg.moe
         h = L.norm_apply(cfg.norm, p["ln_ffn"], x)
-        y, aux = MOE.moe_ffn(p["ffn"], h, num_experts=m.num_experts,
-                             top_k=m.top_k, capacity_factor=m.capacity_factor,
-                             activation=cfg.ffn_activation)
+        with _span("lm.ffn", "lm"):
+            y, aux = MOE.moe_ffn(p["ffn"], h, num_experts=m.num_experts,
+                                 top_k=m.top_k,
+                                 capacity_factor=m.capacity_factor,
+                                 activation=cfg.ffn_activation)
         x = constrain_batch_only(x + y)
     return x, new_cache, aux
 
@@ -435,16 +448,18 @@ def _encoder_forward(cfg: ArchConfig, params: Params, frames: torch.Tensor,
 
 
 def _embed_tokens(cfg, params, tokens):
-    x = L.embed(params["embed"], tokens)
-    if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    with _span("lm.embed", "lm"):
+        x = L.embed(params["embed"], tokens)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
 
 
 def _unembed(cfg, params, x):
-    x = L.norm_apply(cfg.norm, params["final_norm"], x)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(table, x, cfg.vocab_size, cfg.logit_softcap)
+    with _span("lm.head", "lm"):
+        x = L.norm_apply(cfg.norm, params["final_norm"], x)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return L.unembed(table, x, cfg.vocab_size, cfg.logit_softcap)
 
 
 def _backbone(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -522,7 +537,9 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]
     and total is ce."""
     x, _, aux = _backbone(cfg, params, batch["tokens"], "train", None, 0,
                           batch.get("frames"))
-    ce = L.cross_entropy(_unembed(cfg, params, x), batch["labels"])
+    logits = _unembed(cfg, params, x)
+    with _span("lm.loss", "lm"):
+        ce = L.cross_entropy(logits, batch["labels"])
     moe_aux = aux["load_balance_loss"]
     coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
     return ce + coef * moe_aux, {"ce": ce, "moe_aux": moe_aux}

@@ -18,6 +18,14 @@ against the plan-cache-hit path and asserts <2%).  Three modes:
              their root's verdict, so sampled traces stay complete trees.
 ``full``     everything records.
 
+Device timeline: a span that records while a ``torch.profiler`` runs
+also opens ``torch.profiler.record_function(name)`` for its extent, on
+its own thread.  The span therefore lands on the profiler's host
+timeline, the clock of the device trace, and the kernels launched inside
+it are linked to it by the profiler's own correlation.  The disabled
+path, a root that sampling suppressed, and a span recorded with no
+profiler running open none.
+
 Cross-thread parenting: a span does not survive a thread handoff by
 itself (the context stack is thread-local), so the submitting side
 captures ``tracer.context()`` and the worker runs inside
@@ -80,6 +88,8 @@ class Span:
     # (parent span id, parent tid, capture time) — the exporter emits a
     # Chrome flow arrow from there to this span's start
     flow_from: Optional["TraceContext"] = None
+    # the profiler's record_function open for the span's extent
+    mirror: Any = field(default=None, repr=False, compare=False)
 
     @property
     def dur_s(self) -> Optional[float]:
@@ -286,6 +296,7 @@ class Tracer:
                   parent_id=parent_id, trace_id=trace_id,
                   tid=t.ident or 0, thread_name=t.name,
                   t0=time.perf_counter(), args=dict(args), flow_from=flow)
+        sp.mirror = _open_mirror(name)
         local.stack.append(sp)
         with self._lock:
             self._open[sp.span_id] = sp
@@ -293,6 +304,9 @@ class Tracer:
 
     def _finish(self, sp: Span) -> None:
         sp.t1 = time.perf_counter()
+        if sp.mirror is not None:
+            sp.mirror.__exit__(None, None, None)
+            sp.mirror = None
         stack = self._local.stack
         # normal case: sp is the innermost open span on this thread
         if stack and stack[-1] is sp:
@@ -387,6 +401,26 @@ class _Attach:
     def __exit__(self, *exc) -> bool:
         self._local.attached = self._prev
         return False
+
+
+_profiler = None           # (profiler_enabled, record_function), at first use
+
+
+def _open_mirror(name: str):
+    """Enter ``torch.profiler.record_function(name)`` while a profiler
+    runs (torch is imported at the first recorded span, never by the
+    disabled path); None when none runs."""
+    global _profiler
+    if _profiler is None:
+        import torch
+        _profiler = (torch._C._autograd._profiler_enabled,
+                     torch.profiler.record_function)
+    enabled, record_function = _profiler
+    if not enabled():
+        return None
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
 
 
 #: the process-global tracer every instrumentation site records into
