@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the result line):
 
 0. card and versions;
 1. build the kernel libraries from ``src/`` with nvcc (the hash kernels,
-   the flash forward, the flash backward, the SSD scan, the SSD backward),
+   the flash forward, the flash backward, the decode kernel, the SSD scan,
+   the SSD backward),
    one process each, all started together;
 2. hold each hash-partition kernel against its plain torch version on the
    card, bit for bit, at the main path's shapes (2^26 keys, the shape
@@ -35,7 +36,13 @@ Phases (any failure exits non-zero before the result line):
    within 1e-4 of max |grad| in float32, 2e-2 and relative RMS 1e-2 in
    bf16; a second call bit-equal), timed in bf16 beside its bound, the
    twin's VJP and SDPA's backward, with a torch.profiler split of one call
-   by launch (the D pass, the fused kernel, the dq pass);
+   by launch (the D pass, the fused kernel, the dq pass); then the decode
+   kernel at internlm2-1.8b's decode shape (batch 8, 8,200 of 8,208 cache
+   slots) against the sdpa route (float32 within 1e-4 of max |output|,
+   bf16 within 2e-2 of it and relative RMS 1e-2, with a control that
+   leaves out the last 8 keys and must fail that; a second call
+   bit-equal), timed in bf16 on the device's clock beside its byte bound,
+   launch to launch, the sdpa route and one SDPA call;
 6. the chunked SSD scan against its plain version at the reference's test
    shapes, one small shape under slow decay (Mamba-2's published init) and
    mamba2-370m's prefill shape under fast and slow decay (bf16, the
@@ -53,7 +60,8 @@ Phases (any failure exits non-zero before the result line):
    random weights, batch 8, prompt 4096, 32 tokens) in bf16, timed, and in
    float32; finite logits; decode logits equal to a prefill's at two
    positions (within 5e-2 of the logits' max-abs in bf16, 1e-3 in
-   float32); a profiler trace of one prefill and two decode steps;
+   float32); a profiler trace of one prefill and two decode steps; the
+   decode kernel launched once a layer and decode step;
 8. the same for mamba2-370m;
 9. the durable store and the history → advisor loop (Alg. 3) across
    restarts: q04-like runs over SF 1 logged into a history on the card and
@@ -180,10 +188,11 @@ Phases (any failure exits non-zero before the result line):
    within phase 7's limits;
 15. the SPMD layer, flash decode and the "dots" remat policy, for
    internlm2-1.8b in bf16 at full width and depth: (a) 32 decode steps
-   over a 32,768-slot cache (batch 8, a prompt of 32,736) with flash
-   decode off and then on (a fresh prefill, the first run's tokens fed),
-   tokens/s of each and the two routes' logits within phase 7's bf16
-   limit at its gated steps; (b) train steps (batch 4 × 2048) under
+   over a 32,768-slot cache (batch 8, a prompt of 32,736) through the
+   sdpa route (the decode kernel switched off) and then through the
+   decode kernel (a fresh prefill, the first run's tokens fed), tokens/s
+   of each, the kernel once a layer and step, and the two routes' logits
+   within phase 7's bf16 limit at its gated steps; (b) train steps (batch 4 × 2048) under
    ``remat_policy`` "full" and "dots" from one seeded state: step seconds,
    peak memory, the first loss equal, flash launches per step as phase
    12's; (c) the dry run on the fake 256-rank world (no card needed):
@@ -324,6 +333,9 @@ REPLACES = {
     # no Pallas backward either: the gradient of that kernel's function,
     # which the reference takes through jnp ssd_scan_ref
     "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:73",
+    # no Pallas kernel: the reference decodes through jnp sdpa, whose
+    # online-softmax twin flash_decode this is
+    "flash_decode": "src/repro/models/layers.py:236",
 }
 MAIN_N = 1 << 26                    # shape bucket of SF-10 lineitem
 SF10_LINES = 60_000_000
@@ -883,6 +895,139 @@ def run_flash(torch, fa, fa_ref, card):
           f"kernel_TFLOP/s={flops / row['ms'] / 1e9:.2f} "
           f"max_abs_err={err:.3e} on {card}", flush=True)
     del q, k, v, flush
+    torch.cuda.empty_cache()
+    return row
+
+
+# -- phase 5 (decode): the decode-attention kernel ----------------------------
+
+FD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu"
+#: internlm2-1.8b's decode step in the saturated serving cell: batch, heads,
+#: kv heads, head dim, cache slots, valid keys
+FD_MAIN = (8, 16, 8, 128, 8208, 8200)
+#: against sdpa: (elementwise, relative RMS), the elementwise limit a share
+#: of max |output| (an output over 8,200 keys is ~0.02 in size, so an
+#: absolute 2e-2 would pass a dropped split); bf16 last, its tensors timed
+FD_TOL = {"float32": (1e-4, None), "bfloat16": (2e-2, RMS_LIMIT)}
+#: the control leaves out this many of the last keys; it must fail FD_TOL
+FD_DROPPED = 8
+
+
+def time_device_ms(torch, fn, flush, reps: int = 50,
+                   warmup: int = 200) -> float:
+    """Mean ms of ``fn`` on the device's clock: as :func:`time_ms`, but
+    the stream held busy by a spin kernel while the host queues the start
+    event and ``fn``, so the events hold the launch alone and not the host
+    time before it (which :func:`time_ms` holds for a launch this short)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)        # ~1 ms at the H100's clocks
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def fd_check(torch, got, want, tol, what):
+    """``got`` within ``tol`` = (share of max |want| elementwise, relative
+    RMS or None) of ``want``; returns (max abs err, limit, relative RMS),
+    raises outside it."""
+    torch.cuda.synchronize()
+    elem, rms = tol
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    limit = elem * float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    rel = rel_rms(torch, got, want)
+    if err > limit:
+        raise AssertionError(f"{what}: max abs err {err} above {limit}")
+    if rms is not None and rel > rms:
+        raise AssertionError(f"{what}: relative RMS error {rel} above {rms}")
+    return err, limit, rel
+
+
+def run_flash_decode(torch, fd, card):
+    """The decode kernel at internlm2's decode shape against the sdpa route
+    (float32 and bf16, bit-equal over two calls, a control with the last
+    keys dropped refused), then timed in bf16 beside its byte bound, the
+    sdpa route and one ``scaled_dot_product_attention(enable_gqa=True)``
+    call, the library yardstick only (the port never calls it)."""
+    from repro_torch.kernels.cost import flash_decode_cost
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    B, H, KV, hd, Skv, kv_len = FD_MAIN
+    kw = dict(kv_len=kv_len, q_offset=kv_len - 1)
+    errs = {}
+    for dname, tol in FD_TOL.items():
+        dtype = getattr(torch, dname)
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Skv, KV, hd), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        got = fd.flash_decode(q, k, v, **kw)
+        again = fd.flash_decode(q, k, v, **kw)
+        want = L.sdpa(q, k, v, causal=True, **kw)
+        what = f"flash_decode {FD_MAIN} {dname}"
+        err, limit, rel = fd_check(torch, got, want, tol, what)
+        errs[dname] = err
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_decode {dname}: two calls differ")
+        short = fd.flash_decode(q, k, v, **dict(kw,
+                                                kv_len=kv_len - FD_DROPPED))
+        try:
+            fd_check(torch, short, want, tol, what)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"{what}: the check passes the kernel with "
+                                 f"the last {FD_DROPPED} keys left out: it "
+                                 f"cannot catch them")
+        print(f"phase 5: flash_decode B={B} H={H} KV={KV} hd={hd} "
+              f"kv_len={kv_len} {dname}: max_abs_err={err:.3e} (limit "
+              f"{limit:.3e}) rel_rms={rel:.3e} (limit {tol[1]}), bit-equal "
+              f"over two calls; the last {FD_DROPPED} keys left out: "
+              f"rel_rms={rel_rms(torch, short, want):.3e}, refused",
+              flush=True)
+    del got, again, want, short
+    flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
+    # the valid prefix of K and V read once, q read and the output written
+    _, nbytes = flash_decode_cost(B, H, KV, kv_len, hd, hd,
+                                  q.element_size())
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+    row = {
+        "name": "flash_decode", "route": "cuda", "source": FD_SOURCE,
+        "replaces": REPLACES["flash_decode"], "launches": 0,
+        "max_abs_err": errs["bfloat16"],
+        "ms": time_device_ms(torch, lambda: fd.flash_decode(q, k, v, **kw),
+                             flush),
+        # the same launches timed as every other row: the wrapper's host
+        # time before each launch is inside its events
+        "launch_ms": time_ms(torch, lambda: fd.flash_decode(q, k, v, **kw),
+                             flush, reps=50, warmup=200),
+        "plain_ms": time_ms(torch, lambda: L.sdpa(q, k, v, causal=True,
+                                                   **kw), flush, reps=10),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": time_device_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True), flush, reps=20, warmup=20),
+    }
+    print(f"phase 5: flash_decode B={B} H={H} KV={KV} hd={hd} "
+          f"kv_len={kv_len} bf16: kernel_ms={row['ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} (bytes: {int(nbytes)} B, "
+          f"{row['bound_ms'] / row['ms'] * 100:.1f}% of it) launch_ms="
+          f"{row['launch_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} "
+          f"max_abs_err={errs['bfloat16']:.3e} on {card}", flush=True)
+    del q, k, v, qt, kt, vt, flush
     torch.cuda.empty_cache()
     return row
 
@@ -4210,11 +4355,15 @@ P15_OP_CALLS = 2000
 def p15_flash_decode(torch, np, T, L, get_config, counters, fa, card):
     """(a) internlm2-1.8b, bf16, full width and depth: a prompt of
     32768 - 32 tokens prefilled into a 32768-slot cache, then 32 decode
-    steps with flash decode off, and again from a fresh prefill with it on,
-    fed the first run's greedy tokens; tokens/s of each, and the logits of
-    the two routes held to each other at phase 7's gated steps within its
-    bf16 limit (the rest printed as drift).  Returns flash launches."""
+    steps through the sdpa route (the decode kernel switched off), and
+    again from a fresh prefill through the decode kernel, fed the first
+    run's greedy tokens; tokens/s of each, the kernel launched once a layer
+    and step, and the logits of the two routes held to each other at phase
+    7's gated steps within its bf16 limit (the rest printed as drift).
+    Returns flash launches."""
     import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash_decode as fd
     dev = torch.device("cuda")
     B, Lc, steps = P15_DECODE
     cfg = dataclasses.replace(get_config(P15_ARCH), param_dtype="bfloat16")
@@ -4224,11 +4373,14 @@ def p15_flash_decode(torch, np, T, L, get_config, counters, fa, card):
         0, cfg.vocab_size, (B, Lc - steps), dtype=np.int32)).to(dev)
     positions, limit = DECODE_CHECKS["bfloat16"]
     feed, logits, launched = None, {}, 0
+    takes = fd.kernel_takes
     for route in ("sdpa", "flash_decode"):
-        L.FLASH_DECODE_ENABLED = route == "flash_decode"
+        if route == "sdpa":
+            fd.kernel_takes = lambda q, k, v: False
         try:
             for reset, _ in counters:
                 reset()
+            fd.reset_launches()
             with torch.inference_mode():
                 lg, cache = T.prefill(cfg, params, prompt, cache_len=Lc)
                 launched += fa.LAUNCHES["flash_attention"]
@@ -4246,7 +4398,11 @@ def p15_flash_decode(torch, np, T, L, get_config, counters, fa, card):
                 torch.cuda.synchronize()
                 decode_s = time.perf_counter() - t0
         finally:
-            L.FLASH_DECODE_ENABLED = False
+            fd.kernel_takes = takes
+        want = cfg.num_layers * steps if route == "flash_decode" else 0
+        if fd.LAUNCHES["flash_decode"] != want:
+            raise AssertionError(f"{route}: {fd.LAUNCHES['flash_decode']} "
+                                 f"decode kernel launches, not {want}")
         feed = toks if feed is None else feed
         logits[route] = kept
         print(f"phase 15: (a) {P15_ARCH} bf16 batch={B} cache={Lc} {route}: "
@@ -5679,6 +5835,7 @@ def main() -> int:
     from repro_torch.data.partition_store import export_layout
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_decode as fd
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.hash_partition import hash_partition as hp
     from repro_torch.kernels.hash_partition import ref
@@ -5697,7 +5854,7 @@ def main() -> int:
     print(card, flush=True)
 
     t1 = time.perf_counter()
-    libs = (hp.LIB, fa.LIB, fa.LIB_BWD, ss.LIB, ss.LIB_BWD)
+    libs = (hp.LIB, fa.LIB, fa.LIB_BWD, fd.LIB, ss.LIB, ss.LIB_BWD)
     with ThreadPoolExecutor(len(libs)) as pool:      # one nvcc per source
         for lib, fut in [(lib, pool.submit(lib.build, True)) for lib in libs]:
             fut.result()
@@ -5736,6 +5893,7 @@ def main() -> int:
     t5 = time.perf_counter()
     kernels["flash_attention"] = run_flash(torch, fa, fa_ref, card)
     kernels["flash_attention_bwd"] = run_flash_bwd(torch, fa, fa_ref, card)
+    kernels["flash_decode"] = run_flash_decode(torch, fd, card)
     print(f"phase 5: done in {time.perf_counter() - t5:.1f} s", flush=True)
     t6 = time.perf_counter()
     kernels["ssd_scan"] = run_ssd(torch, ss, ss_ref, card)
@@ -5744,6 +5902,7 @@ def main() -> int:
 
     counters = [(hp.reset_launches, hp.LAUNCHES),
                 (fa.reset_launches, fa.LAUNCHES),
+                (fd.reset_launches, fd.LAUNCHES),
                 (ss.reset_launches, ss.LAUNCHES)]
     p7_ids = None
     for phase, arch, kernel, layers in ((7, "internlm2-1.8b",
@@ -5760,6 +5919,14 @@ def main() -> int:
                             f"{counts[kernel]} times in one prefill, not "
                             f"once per layer ({layers})")
         launches[kernel] = served["bfloat16"][kernel]
+        if phase == 7:
+            # every decode step's attention, one launch a layer
+            for dtype, counts in served.items():
+                if counts["flash_decode"] != layers * GEN:
+                    return fail(f"{arch} {dtype}: flash_decode launched "
+                                f"{counts['flash_decode']} times in "
+                                f"{GEN} decode steps, not {layers * GEN}")
+            launches["flash_decode"] = served["bfloat16"]["flash_decode"]
         print(f"phase {phase}: done in {time.perf_counter() - tp:.1f} s",
               flush=True)
     # the training phases' own

@@ -53,6 +53,18 @@ def flash_attention_bwd_cost(B: int, H: int, KV: int, Sq: int, Skv: int,
     return flops, nbytes
 
 
+def flash_decode_cost(B: int, H: int, KV: int, n_keys: int, hd: int,
+                      vd: int, itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one decode-attention call: one query a (batch row,
+    head) over ``n_keys`` attended keys, q·k and p·v; q read, the attended
+    K and V rows read once for all the heads of their group, out
+    written."""
+    flops = 2.0 * B * H * n_keys * (hd + vd)
+    nbytes = float(itemsize * (B * H * hd + B * KV * n_keys * (hd + vd)
+                               + B * H * vd))
+    return flops, nbytes
+
+
 def ssd_scan_cost(B: int, T: int, H: int, P: int, N: int, L: int,
                   itemsize: int, dt_itemsize: int = 4
                   ) -> Tuple[float, float]:

@@ -36,6 +36,12 @@ is offered only with more than one kv head, so a query head never lands
 apart from its kv head.  On DTensors the backward runs shard by shard in
 the layout the forward ran in (:mod:`.._spmd`).
 
+Decode attention on the card, one query over a KV cache, is the decode
+kernel's custom op ``repro_torch::flash_decode`` (:func:`flash_decode_op`,
+:mod:`.flash_decode`), which ``models/layers._route`` calls where
+``flash_decode.kernel_takes`` holds; it has no gradient and no sharding
+rule, since DTensor callers hand it each rank's local tensors.
+
 The kernels take the head dims in ``HEAD_DIMS`` (32, 64, 128, 256) and any
 multiple of 32 above 256 (split into slices of those).  A CUDA or meta
 tensor of another head dim (16 in every reduced config) goes through
@@ -58,6 +64,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from ...pjit_utils import mesh_of
 from .. import _spmd
 from . import flash_attention as _k
+from . import flash_decode as _d
 from .ref import attention_ref
 
 
@@ -123,6 +130,25 @@ def _flash_attention_backward_fake(q, k, v, out, lse, dout, causal, window,
     return (q.new_empty((B, Sq, H, hd)).transpose(1, 2),
             k.new_empty((B, Skv, KV, hd)).transpose(1, 2),
             v.new_empty((B, Skv, KV, hd)).transpose(1, 2))
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[int], window: Optional[int],
+                    softcap: float, q_offset: int, scale: Optional[float],
+                    causal: bool) -> torch.Tensor:
+    """The decode kernel as a custom op: q (B, 1, H, hd) over the cache k
+    (B, Skv, KV, hd), v (B, Skv, KV, vd) → (B, 1, H, vd)."""
+    return _d.flash_decode(q, k, v, kv_len=kv_len, window=window,
+                           attn_softcap=softcap, q_offset=q_offset,
+                           scale=scale, causal=causal)
+
+
+@flash_decode_op.register_fake
+def _flash_decode_fake(q, k, v, kv_len, window, softcap, q_offset, scale,
+                       causal):
+    B, _, H, _ = q.shape
+    return q.new_empty((B, 1, H, v.shape[3]))
 
 
 def _layouts(kv_heads: int):

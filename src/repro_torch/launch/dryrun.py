@@ -69,7 +69,9 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeSpec], *,
     ``extra_cfg`` overrides ArchConfig fields (remat_policy, accum_steps,
     mla_absorbed, ...); ``variant`` toggles spec-level knobs:
     cache_seq_shard (flash-decode cache layout), fsdp_params (decode
-    weights sharded over DP too), flash_decode."""
+    weights sharded over DP too), flash_decode (the plain twin, for the
+    one-query calls the decode kernel's op does not take; the others take
+    the op on meta tensors, as on the card)."""
     variant = variant or {}
     _layers.FLASH_DECODE_ENABLED = bool(variant.get("flash_decode", False))
     if mesh is None:

@@ -37,7 +37,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels.cost import (flash_attention_bwd_cost, flash_attention_cost,
-                            ssd_scan_bwd_cost, ssd_scan_cost)
+                            flash_decode_cost, ssd_scan_bwd_cost,
+                            ssd_scan_cost)
+from ..kernels.flash_attention.flash_decode import key_range
 
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "collective-permute")
@@ -134,6 +136,13 @@ def _kernel_cost(name: str, args) -> tuple:
         return flash_attention_cost(*shape, args[3], args[4],
                                     q.element_size(),
                                     lse=name == "flash_attention_lse")
+    if name == "flash_decode":
+        q, k, v = args[0], args[1], args[2]
+        kv_len, window, q_offset, causal = args[3], args[4], args[6], args[8]
+        lo, hi = key_range(k.shape[1], kv_len, causal, window, q_offset)
+        return flash_decode_cost(q.shape[0], q.shape[2], k.shape[2],
+                                 max(0, hi - lo), q.shape[3], v.shape[3],
+                                 q.element_size())
     if name in ("ssd_scan", "ssd_scan_backward"):
         x, dt, Bm = args[0], args[1], args[3]
         B, T, H, P = x.shape

@@ -10,11 +10,14 @@ across (:mod:`.convert`).
 
 Full-sequence attention (prefill) goes through the flash-attention kernel
 (:func:`full_attention`); decode attention is :func:`auto_sdpa` over the
-cache, as the reference's decode is plain jnp: :func:`sdpa`, or with
+cache.  On the card (and on the dry run's meta tensors) one query goes to
+the decode kernel, which reads the cache in its own dtype
+(``kernels/flash_attention/flash_decode.py``) and computes
+:func:`flash_decode`'s function.  On the CPU it is plain torch, as
+the reference's decode is plain jnp: :func:`sdpa`, or with
 :data:`FLASH_DECODE_ENABLED` and a cache of at least
 :data:`FLASH_DECODE_THRESHOLD` slots :func:`flash_decode`, the reference's
-online softmax over key blocks (plain torch, as the reference's is jnp
-outside any Pallas kernel).
+online softmax over key blocks.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels._spmd import pad_zeros  # noqa: F401 (the models' import)
+from ..kernels.flash_attention import flash_decode as decode_kernel
 from ..kernels.flash_attention import ops as flash_ops
 from ..pjit_utils import mesh_of, shard_index, use_param
 
@@ -234,7 +238,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 FLASH_DECODE_THRESHOLD = 8192
 FLASH_DECODE_BLOCK = 2048
 #: default OFF, as in the reference; the advisor's ``flash_decode`` variant
-#: and ``chip_smoke.py`` phase 15 switch it on
+#: switches it on.  It chooses between the two plain routes, so it acts on
+#: CPU tensors alone: on the card and in the dry run one query takes the
+#: decode kernel whatever its value, and the variant scores as the baseline
 FLASH_DECODE_ENABLED = False
 
 
@@ -295,17 +301,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def auto_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               **kw) -> torch.Tensor:
-    """The reference's router at the decode call sites: :func:`flash_decode`
-    for one query over a cache of at least the threshold when enabled,
-    else :func:`sdpa`.  (The reference's third route, ``blockwise_sdpa``
-    for long full sequences, is the flash kernel here.)  On DTensors each
-    rank attends its own batch rows and heads (:func:`_attend_local`)."""
+    """The reference's router at the decode call sites: on the card one
+    query goes to the decode kernel wherever its dtype and head dims allow
+    (``decode_kernel.kernel_takes``); else :func:`flash_decode` for one
+    query over a cache of at least the threshold when enabled, else
+    :func:`sdpa`.  (The reference's third route, ``blockwise_sdpa`` for long
+    full sequences, is the flash kernel here.)  On DTensors each rank
+    attends its own batch rows and heads (:func:`_attend_local`)."""
     if mesh_of(q) is not None:
         return _attend_local(q, k, v, kw)
     return _route(q, k, v, kw)
 
 
 def _route(q, k, v, kw) -> torch.Tensor:
+    if decode_kernel.kernel_takes(q, k, v):
+        return flash_ops.flash_decode_op(
+            q, k, v, kw.get("kv_len"), kw.get("window"),
+            float(kw.get("attn_softcap", 0.0)), int(kw.get("q_offset", 0)),
+            kw.get("scale"), kw.get("causal", True))
     if (FLASH_DECODE_ENABLED and q.shape[1] == 1
             and k.shape[1] >= FLASH_DECODE_THRESHOLD):
         return flash_decode(q, k, v, **kw)

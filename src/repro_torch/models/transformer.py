@@ -308,7 +308,8 @@ def _attn_decode_ring(cfg, p, x, positions, cache, cache_pos):
     slots (RoPE was applied before caching, so slot order does not
     matter).  RoPE follows ``cfg.positional`` alone, as in the reference.
     Attention goes through :func:`L.auto_sdpa`, where the reference calls
-    ``sdpa``: the two differ only for a ring of at least
+    ``sdpa``: on the card the decode kernel, which computes the same
+    function; elsewhere the two differ only for a ring of at least
     ``FLASH_DECODE_THRESHOLD`` slots with flash decode on, which no config
     has (recurrentgemma-9b, the one config with rings, keeps 2048)."""
     pa = p["attn"]
